@@ -8,12 +8,13 @@ import os
 
 import numpy as np
 
-BOX = "/root/reference/assets/models/BoxTextured.glb"
+from assets import box_path
+
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
 
 def spotarea_renderer():
-    """The reference app's lights (main.rs:38-64) on BoxTextured at 2x,
+    """The reference app's lights (main.rs:38-64) on the textured cube at 2x,
     128x128 ULTRA GTAO — the workload-shaped golden (scaled-down 800x800
     spot+area scene the VERDICT asked for)."""
     from tpurt.app.offline import default_scene
@@ -24,7 +25,7 @@ def spotarea_renderer():
                          gtao=GtaoSettings(slice_count=9, steps_per_slice=3,
                                            denoise=1))
     r = Renderer(cfg)
-    default_scene(r, BOX)
+    default_scene(r, box_path())
     r.camera_mut().set_pos([0.0, 2.5, -2.5])
     d = np.array([0.0, -0.707, 0.707])
     r.camera_mut().set_dir(d / np.linalg.norm(d))

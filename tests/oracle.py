@@ -2,7 +2,7 @@
 Vulkan reference's shader math DIRECTLY from the GLSL sources — brute-force
 ray/triangle intersection, no tpurt trace/shade code anywhere.
 
-Sources re-derived (file:line in /root/reference/src/vk_renderer/shaders):
+Sources re-derived (file:line in the reference repository, src/vk_renderer/shaders):
   * camera rays + shading loop  rt_lightning_shadows/raytrace.rgen.glsl:77-199
   * light radiance / L vectors  rt_lightning_shadows/light.glsl:34-124
   * BRDFs                       brdfs.glsl:6-99

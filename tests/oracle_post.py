@@ -2,7 +2,7 @@
 denoise) and FidelityFX-LPM filter implemented DIRECTLY from the reference
 shader sources — no tpurt rendering code anywhere.
 
-Sources re-derived (file:line under /root/reference/src/vk_renderer/shaders):
+Sources re-derived (file:line under the reference repository's src/vk_renderer/shaders):
   * depth prefilter        xegtao/XeGTAO.hlsli:580-694
   * GTAO main pass         xegtao/XeGTAO.hlsli:246-577
   * edge-aware denoise     xegtao/XeGTAO.hlsli:696-836

@@ -1,7 +1,7 @@
 """Deliberately regenerate the golden-frame fixtures.
 
 Run when a rendering change is INTENDED:
-    cd /root/repo && JAX_PLATFORMS=cpu python tests/regen_goldens.py
+    JAX_PLATFORMS=cpu python tests/regen_goldens.py
 (frame64.npz — the original golden — has its own provenance; this tool
 only rewrites the fixtures it knows how to build.)
 """

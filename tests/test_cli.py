@@ -3,15 +3,14 @@ import os
 
 import numpy as np
 
+from assets import box_path
 from tpurt.app import offline
-
-BOX = "/root/reference/assets/models/BoxTextured.glb"
 
 
 def test_cli_single_frame(tmp_path):
     out = str(tmp_path / "frame.png")
     offline.main([
-        "--model", BOX, "--width", "64", "--height", "64",
+        "--model", box_path(), "--width", "64", "--height", "64",
         "--frames", "1", "--quality", "low", "--out", out,
         "--cam-pos", "0", "0", "-3",
     ])
@@ -26,7 +25,7 @@ def test_cli_accumulation_with_checkpoint(tmp_path):
     out = str(tmp_path / "truth.png")
     ckpt = str(tmp_path / "accum.npz")
     offline.main([
-        "--model", BOX, "--width", "32", "--height", "32",
+        "--model", box_path(), "--width", "32", "--height", "32",
         "--spp", "3", "--checkpoint", ckpt, "--checkpoint-every", "2",
         "--quality", "low", "--out", out, "--cam-pos", "0", "0", "-3",
     ])
@@ -53,7 +52,7 @@ def test_interactive_replay_moves_camera(tmp_path):
     cfg = RendererConfig(width=32, height=32,
                          gtao=GtaoSettings(1, 2, denoise=0))
     r = Renderer(cfg)
-    default_scene(r, "/root/reference/assets/models/BoxTextured.glb")
+    default_scene(r, box_path())
     r.camera_mut().set_pos([0.0, 0.0, -3.0])
     r.prepare_first_frame()
     pos0 = np.array(r.camera.pos)
@@ -71,7 +70,7 @@ def test_interactive_cli_main(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     from tpurt.app.interactive import main
 
-    main(["--model", "/root/reference/assets/models/BoxTextured.glb",
+    main(["--model", box_path(),
           "--frames", "3", "--width", "32", "--height", "32",
           "--quality", "low", "--save-every", "2",
           "--out-prefix", str(tmp_path / "f")])

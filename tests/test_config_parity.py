@@ -3,19 +3,17 @@ item 6): every RendererConfig knob must either take effect identically on
 static / dynamic / sharded rendering, or raise a clear error.
 
 Round 2 had two silent divergences — aniso_taps was not plumbed into
-render_frame_sharded, and the dynamic object pytree dropped the mip atlas —
-plus a user-reachable crash (tracer="xla" faults the TPU worker at scale).
+render_frame_sharded, and the dynamic object pytree dropped the mip atlas.
 """
 import numpy as np
-import pytest
 
+from assets import box_path
 from tpurt.dist.sharding import make_mesh, render_frame_sharded
 from tpurt.engine import Renderer, RendererConfig
-from tpurt.engine.dynamic import make_refit_data, render_frame_dynamic_refit
+from tpurt.engine.dynamic import render_frame_dynamic
 from tpurt.passes.gtao import GtaoSettings, gtao_constants
 from tpurt.scene.lights import PointLight
 
-BOX = "/root/reference/assets/models/BoxTextured.glb"
 SIZE = 64
 
 
@@ -25,10 +23,10 @@ def _renderer(**cfg_kwargs):
     r = Renderer(cfg)
     eye = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 0]],
                    np.float32)
-    r.add_model(BOX, eye)
+    r.add_model(box_path(), eye)
     m2 = np.array([[0.4, 0, 0, 0.7], [0, 0.4, 0, 0.35], [0, 0, 0.4, -0.3]],
                   np.float32)
-    r.add_model(BOX, m2)
+    r.add_model(box_path(), m2)
     r.camera_mut().set_pos([0.35, -0.7, -1.9])
     d = np.array([-0.1, 0.3, 1.0])
     r.camera_mut().set_dir(d / np.linalg.norm(d))
@@ -40,8 +38,9 @@ def _renderer(**cfg_kwargs):
 
 
 def _frames_all_paths(r, aniso_taps=None, spp=None):
-    """Render the same scene through static, dynamic-refit, and 2-device
-    sharded paths; returns dict of u8 images."""
+    """Render the same scene through static, dynamic (in-jit LBVH rebuild
+    at the rest pose), and 2-device sharded paths; returns dict of u8
+    images."""
     c = r.config
     if aniso_taps is not None:
         c.aniso_taps = aniso_taps
@@ -51,19 +50,16 @@ def _frames_all_paths(r, aniso_taps=None, spp=None):
     r._frame_idx = 0
     out["static"] = np.asarray(r.render(block=True)["image"], np.int64)
 
-    # dynamic refit at the rest pose (identity delta): same BVH8 topology +
-    # same SAH order as the static scene
     import jax
 
     obj = jax.device_put(r.scene.as_object_pytree())
-    refit = jax.device_put(make_refit_data(r.scene))
     cam = r.camera.uniform()
     lights = r.lights.shader_arrays()
     consts = gtao_constants(c.width, c.height, r.camera.znear,
                             r.camera.zfar, r.camera.fovy, r.camera.aspect)
     rest = np.asarray(r.scene.transforms, np.float32)
-    dyn = render_frame_dynamic_refit(
-        obj, refit, rest, cam, lights, consts, r._lpm_derived, np.int32(0),
+    dyn = render_frame_dynamic(
+        obj, rest, cam, lights, consts, r._lpm_derived, np.int32(0),
         width=c.width, height=c.height, gtao_settings=c.gtao,
         enable_gtao=c.enable_gtao, enable_tonemap=c.enable_tonemap,
         aniso_taps=c.aniso_taps)
@@ -117,30 +113,3 @@ def test_gtao_tonemap_toggles_consistent():
     out = _frames_all_paths(r)
     _close(out["static"], out["dynamic"], "toggles static vs dynamic")
     assert np.array_equal(out["static"], out["sharded"])
-
-
-def test_xla_tracer_guard_raises_at_scale(monkeypatch):
-    """tracer='xla' beyond the worker-faulting scene size must raise an
-    actionable error instead of crashing the TPU worker."""
-    import jax
-
-    from tpurt.scene.procedural import box_field
-
-    cfg = RendererConfig(width=SIZE, height=SIZE, tracer="xla")
-    r = Renderer(cfg)
-    r.models.append(box_field(nx=10, nz=10, subdiv=5))
-    r.camera_mut().set_pos([0.0, -2.0, -6.0])
-    d = np.array([0.0, 0.3, 1.0])
-    r.camera_mut().set_dir(d / np.linalg.norm(d))
-    r.prepare_first_frame()
-    assert r.scene.geom["v0"].shape[0] > Renderer.XLA_TRACER_MAX_TRIS
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with pytest.raises(ValueError, match="faults the TPU worker"):
-        r._pallas_tables()
-
-    # small scenes keep working
-    small = _renderer()
-    small.config.tracer = "xla"
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert small._pallas_tables() == ""

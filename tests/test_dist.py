@@ -1,7 +1,7 @@
-"""Multi-chip sharding: an 8-virtual-device CPU mesh must reproduce the
-single-device frame bit-exactly (replicated scene, band-sharded rays,
-ICI all-gather for the post passes) — for the XLA tracer, the Pallas packet
-tracer (interpret mode on CPU), spp > 1, and every output buffer."""
+"""Multi-device sharding: an 8- or 4-virtual-device CPU mesh must reproduce
+the single-device frame bit-exactly (replicated scene, band-sharded rays,
+all-gather for the post passes) — for the XLA tracer, the GPU traversal
+kernel (Pallas interpreter on CPU), spp > 1, and every output buffer."""
 import jax
 import numpy as np
 
@@ -37,16 +37,15 @@ def test_sharded_matches_single_device():
                                       np.asarray(out[key]), err_msg=key)
 
 
-def test_sharded_packet_tracer_matches_single():
-    """The flagship Pallas packet tracer must work under shard_map
-    (interpret mode on CPU) and agree bit-exactly with the single-device
-    packet-traced frame."""
+def test_sharded_packet_tracer_matches_single(gpu_kernel_path):
+    """The GPU traversal kernel must work under shard_map (Pallas
+    interpreter on CPU) and agree bit-exactly with the single-device frame
+    traced by the same kernel."""
     r = make_renderer()
-    r.config.tracer = "smem"
     single = np.asarray(r.render()["image"])
 
     r2 = make_renderer()
-    out = _sharded_out(r2, make_mesh(8), pallas_tables="smem")
+    out = _sharded_out(r2, make_mesh(8))
     np.testing.assert_array_equal(single, np.asarray(out["image"]))
 
 
@@ -63,7 +62,7 @@ def test_sharded_spp_and_toggles_match_single():
 
 def test_renderer_mesh_api():
     """RendererConfig.mesh routes frames through the sharded path, honoring
-    the full config surface (spp, tracer tier, toggles)."""
+    the full config surface (spp, toggles)."""
     r = make_renderer()
     r.config.spp = 2
     single = np.asarray(r.render()["image"])
@@ -121,32 +120,32 @@ def test_sharded_geometry_ring_matches_replicated():
 
 
 def test_sharded_bvh8_tier_matches_single():
-    """The production BVH8 tier through the sharded path (interpret mode,
-    8 virtual devices): bit-exact vs the single-device BVH8 frame."""
+    """The four-device mesh the GPU path runs (chip_smoke.py --multi):
+    bit-exact vs the single-device frame across the output surface."""
     r = make_renderer()
-    r.config.tracer = "bvh8"
-    single = np.asarray(r.render()["image"])
-
-    r2 = make_renderer()
-    out = _sharded_out(r2, make_mesh(8), pallas_tables="bvh8")
-    np.testing.assert_array_equal(single, np.asarray(out["image"]))
-
-
-def test_sharded_pallas_gtao_matches_single_chip():
-    """The banded Pallas GTAO main pass under shard_map (traced band
-    origins) matches the single-chip Pallas frame (round-3 fix: sharded
-    frames previously fell back to the XLA main pass — 7x slower on real
-    Mosaic). Pallas GTAO on both sides; FMA contraction under shard_map
-    allows <=0.1% of pixels off by >1 ulp of u8."""
-    from dataclasses import replace
-
-    r = make_renderer()
-    gtao_p = replace(r.config.gtao, pallas_main=True, pallas_denoise=True)
-    r.config.gtao = gtao_p
     single = r.render()
 
     r2 = make_renderer()
-    r2.config.gtao = gtao_p
+    out = _sharded_out(r2, make_mesh(4))
+    for key in ("image", "color", "depth", "normal", "ao"):
+        np.testing.assert_array_equal(np.asarray(single[key]),
+                                      np.asarray(out[key]), err_msg=key)
+
+
+def test_sharded_pallas_gtao_matches_single_chip():
+    """The banded GTAO main pass at ULTRA (9x3) with medium denoise under
+    shard_map (traced band origins, a 3-row halo) matches the single-device
+    frame; FMA contraction under shard_map allows <=0.1% of pixels off by
+    >1 ulp of u8."""
+    from tpurt.passes.gtao import GtaoSettings
+
+    gtao = GtaoSettings(9, 3, denoise=2)
+    r = make_renderer()
+    r.config.gtao = gtao
+    single = r.render()
+
+    r2 = make_renderer()
+    r2.config.gtao = gtao
     out = _sharded_out(r2, make_mesh(4))
     for key in ("image", "ao"):
         a = np.asarray(single[key]).astype(np.int64)

@@ -1,9 +1,8 @@
-"""Sharded-geometry flagship tier (dist/geometry.py, tables="bvh8"):
-BVH8 packet ring + fused multi-light shadow tour + row-sharded shading
-tables served by ring_gather, on an 8-virtual-device CPU mesh. The frame
-must be bit-exact vs the single-chip BVH8 frame, and per-chip HBM must
-actually drop ~D× (the mode exists to remove the replicated-scene ceiling,
-SURVEY.md §2.4)."""
+"""Sharded-geometry mode (dist/geometry.py): the ray ring through the
+tracer entry + row-sharded shading tables served by ring_gather, on an
+8-virtual-device CPU mesh. The frame must be bit-exact vs the single-device
+frame, and per-device memory must actually drop ~D× (the mode exists to
+remove the replicated-scene ceiling, SURVEY.md §2.4)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +20,7 @@ from test_frame import make_renderer
 def _geometry_out(r2, n, **renderer_kw):
     cfg = r2.config
     scene = r2.scene.as_pytree()
-    shards = shard_geometry(scene, n, tables="bvh8")
+    shards = shard_geometry(scene, n)
     tbl, meta = shard_tables(scene, n)
     consts = gtao_constants(cfg.width, cfg.height, r2.camera.znear,
                             r2.camera.zfar, r2.camera.fovy, r2.camera.aspect)
@@ -29,13 +28,13 @@ def _geometry_out(r2, n, **renderer_kw):
         scene, shards, r2.camera.uniform(), r2.lights.shader_arrays(),
         consts, r2._lpm_derived, np.int32(0),
         width=cfg.width, height=cfg.height, gtao_settings=cfg.gtao,
-        mesh=make_mesh(n), tables="bvh8", shade_tables=tbl,
-        meta=freeze_meta(meta), **renderer_kw)
+        mesh=make_mesh(n), shade_tables=tbl, meta=freeze_meta(meta),
+        **renderer_kw)
     return out, scene, shards, tbl
 
 
 def _add_lights(r):
-    # two more shadow-casting lights so the fused multi-set tour has S=3
+    # two more shadow-casting lights: three shadow tours per frame
     r.lights_mut().point_lights.append(
         PointLight(pos=[1.5, 1.0, -2.0], color=[1.0, 2.0, 0.5],
                    falloff_distance=8.0, casts_shadows=True))
@@ -75,11 +74,10 @@ def test_ring_gather_matches_direct():
 
 
 def test_geometry_bvh8_matches_single_chip():
-    """Flagship tier, 3 shadow-casting lights: bit-exact vs the single-chip
-    BVH8 frame across the full output surface."""
+    """Ray ring + sharded shading tables, 3 shadow-casting lights:
+    bit-exact vs the single-device frame across the full output surface."""
     r = make_renderer()
     _add_lights(r)
-    r.config.tracer = "bvh8"
     single = r.render()
 
     r2 = make_renderer()
@@ -92,9 +90,8 @@ def test_geometry_bvh8_matches_single_chip():
 
 def test_geometry_bvh8_mipmaps_matches_single_chip():
     """The mip-atlas texture path (tex_mip_quad) through the sharded quad
-    ring gather: bit-exact vs single chip."""
+    ring gather: bit-exact vs single device."""
     r = make_renderer(mipmaps=True)
-    r.config.tracer = "bvh8"
     single = r.render()
 
     r2 = make_renderer(mipmaps=True)
@@ -110,15 +107,15 @@ def test_geometry_hbm_ceiling_drops():
     r = make_renderer()
     scene = r.scene.as_pytree()
     n = 8
-    shards = shard_geometry(scene, n, tables="bvh8")
+    shards = shard_geometry(scene, n)
     tbl, _ = shard_tables(scene, n)
     acct = hbm_accounting(scene, shards, tbl, n)
 
     rep = acct["replicated_bytes"]
     per = acct["sharded_per_chip"]
     # each sharded component is at most ~1/D of its replicated size plus
-    # padding slack (BVH8 rows are denser than flat-BVH pytrees, so
-    # traversal is compared against its own stacked size, not the flat one)
+    # padding slack (each shard's BVH is built on its own, so traversal is
+    # compared against its own stacked size, not the flat one)
     assert per["tri_attr"] * n <= rep["tri_attr"] * 1.25 + 4096
     big_tex = max(rep["tex_quad48"], rep["tex_mip_quad"])
     assert per["texture_rows"] * n <= big_tex * 1.25 + 4096
@@ -127,7 +124,7 @@ def test_geometry_hbm_ceiling_drops():
 
 
 def test_geometry_xla_tier_still_works():
-    """The prototype tier keeps its contract after the refactor."""
+    """Replicated shading tables (no shade_tables) keep their contract."""
     r = make_renderer()
     single = r.render()
 
@@ -147,15 +144,14 @@ def test_geometry_xla_tier_still_works():
 
 
 def test_geometry_bvh8_pair_tier_matches_single_chip():
-    """The pair mip tier (round 5) through the sharded row ring gather:
-    bit-exact vs single chip."""
+    """The pair mip tier through the sharded row ring gather: bit-exact
+    vs single device."""
     import tpurt.scene.scene as scene_mod
 
     old = scene_mod.MIP_QUAD_BUDGET_BYTES
     scene_mod.MIP_QUAD_BUDGET_BYTES = 0   # force the pair tier
     try:
         r = make_renderer(mipmaps=True)
-        r.config.tracer = "bvh8"
         assert r.scene.tex_mip_pair is not None
         single = r.render()
 

@@ -2,6 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
+from assets import box_path
 from tpurt.engine.dynamic import render_frame_dynamic
 from tpurt.passes.gtao import gtao_constants
 
@@ -58,85 +59,28 @@ def test_dynamic_transform_moves_object():
     # calls above share one jit cache entry by construction
 
 
-def test_refit_matches_static_at_rest():
-    """BVH8 refit at the rest transforms reproduces the static frame: the
-    topology is identical and refit boxes equal the packed ones."""
-    from tpurt.engine.dynamic import (make_refit_data,
-                                      render_frame_dynamic_refit)
-
-    r = make_renderer(tracer="smem")
-    static = {k: np.asarray(v) for k, v in r.render().items()}
-
-    r2 = make_renderer()
-    cam, lights, consts, lpm = _args(r2)
-    out = render_frame_dynamic_refit(
-        r2.scene.as_object_pytree(), make_refit_data(r2.scene),
-        r2.scene.transforms, cam, lights, consts, lpm, np.int32(0),
-        width=SIZE, height=SIZE, gtao_settings=r2.config.gtao)
-    dyn = {k: np.asarray(v) for k, v in out.items()}
-
-    diff = np.abs(dyn["depth"] - static["depth"])
-    assert (diff < 1e-3).mean() > 0.999
-    img_diff = np.abs(dyn["image"].astype(int) - static["image"].astype(int))
-    assert (img_diff <= 1).mean() > 0.995
-
-
-def test_refit_matches_rebuild_under_rotation():
-    """Refit vs full LBVH rebuild under a rotated instance: different
-    trees, same hits (up to shared-edge tie-breaks)."""
-    from tpurt.engine.dynamic import (make_refit_data, render_frame_dynamic,
-                                      render_frame_dynamic_refit)
-
-    r = make_renderer()
-    cam, lights, consts, lpm = _args(r)
-    obj = r.scene.as_object_pytree()
-    ang = 0.6
-    c, s = np.cos(ang), np.sin(ang)
-    rot = np.asarray(r.scene.transforms).copy()
-    m = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
-    rot[:, :, :3] = np.einsum("ij,njk->nik", m, rot[:, :, :3])
-
-    rebuilt = render_frame_dynamic(
-        obj, jnp.asarray(rot), cam, lights, consts, lpm, np.int32(0),
-        width=SIZE, height=SIZE, gtao_settings=r.config.gtao)
-    refit = render_frame_dynamic_refit(
-        obj, make_refit_data(r.scene), jnp.asarray(rot), cam, lights,
-        consts, lpm, np.int32(0), width=SIZE, height=SIZE,
-        gtao_settings=r.config.gtao)
-
-    d_depth = np.abs(np.asarray(refit["depth"])
-                     - np.asarray(rebuilt["depth"]))
-    assert (d_depth < 1e-3).mean() > 0.999
-    d_img = np.abs(np.asarray(refit["image"]).astype(int)
-                   - np.asarray(rebuilt["image"]).astype(int))
-    assert (d_img <= 1).mean() > 0.99
-
-
 def test_renderer_render_dynamic_api():
-    """Renderer.render_dynamic: refit and rebuild variants both render and
-    agree with the static frame at rest transforms."""
-    r = make_renderer(tracer="smem")
+    """Renderer.render_dynamic (in-jit LBVH rebuild) agrees with the static
+    frame at the rest transforms."""
+    r = make_renderer()
     static = np.asarray(r.render()["image"]).astype(int)
 
     r2 = make_renderer()
     rest = r2.scene.transforms
-    out_refit = np.asarray(r2.render_dynamic(rest)["image"]).astype(int)
-    out_rebuild = np.asarray(
-        r2.render_dynamic(rest, refit=False)["image"]).astype(int)
-    assert (np.abs(out_refit - static) <= 1).mean() > 0.995
-    assert (np.abs(out_rebuild - static) <= 1).mean() > 0.99
+    out = np.asarray(r2.render_dynamic(rest)["image"]).astype(int)
+    assert (np.abs(out - static) <= 1).mean() > 0.99
 
 
-def test_refit_random_transforms_match_rebuild():
-    """Refit vs full rebuild under random affine instance transforms
-    (rotation + nonuniform-ish scale + translation): same hits."""
-    from tpurt.engine.dynamic import (make_refit_data, render_frame_dynamic,
-                                      render_frame_dynamic_refit)
+def test_dynamic_random_transforms_match_static():
+    """The in-jit rebuild under random affine instance transforms (rotation
+    + scale + translation) hits what a static scene flattened with the same
+    model matrices hits: different trees, same hits up to shared-edge
+    tie-breaks."""
+    from tpurt.engine import Renderer
 
     r = make_renderer()
     cam, lights, consts, lpm = _args(r)
     obj = r.scene.as_object_pytree()
-    refit_data = make_refit_data(r.scene)
     rng = np.random.default_rng(11)
     base = np.asarray(r.scene.transforms)
 
@@ -149,61 +93,16 @@ def test_refit_random_transforms_match_rebuild():
         t[:, :, :3] = np.einsum("ij,njk->nik", m * scale, t[:, :, :3])
         t[:, :, 3] += rng.uniform(-0.5, 0.5, size=t[:, :, 3].shape)
 
-        rebuilt = render_frame_dynamic(
+        dyn = render_frame_dynamic(
             obj, jnp.asarray(t), cam, lights, consts, lpm, np.int32(0),
             width=SIZE, height=SIZE, gtao_settings=r.config.gtao)
-        refit = render_frame_dynamic_refit(
-            obj, refit_data, jnp.asarray(t), cam, lights, consts, lpm,
-            np.int32(0), width=SIZE, height=SIZE,
-            gtao_settings=r.config.gtao)
-        d_depth = np.abs(np.asarray(refit["depth"])
-                         - np.asarray(rebuilt["depth"]))
+
+        st = Renderer(r.config)
+        st.add_model(box_path(), t[0])
+        st.camera = r.camera
+        st.lights = r.lights
+        st.prepare_first_frame()
+        static = st.render()
+        d_depth = np.abs(np.asarray(dyn["depth"])
+                         - np.asarray(static["depth"]))
         assert (d_depth < 1e-3).mean() > 0.999, f"trial {trial}"
-
-
-def test_refit_quality_and_auto_rebuild_trigger():
-    """bvh.wide.refit_quality ~1 at rest, grows under scrambling motion;
-    Renderer.render_dynamic flips refit->rebuild past REBUILD_SAH_RATIO."""
-    from tpurt.engine.dynamic import REBUILD_SAH_RATIO
-    from tpurt.scene.procedural import box_field
-
-    from tpurt.engine import Renderer, RendererConfig
-    from tpurt.passes.gtao import GtaoSettings
-    from tpurt.scene.lights import PointLight
-
-    cfg = RendererConfig(width=32, height=32,
-                         gtao=GtaoSettings(1, 2, denoise=0))
-    r = Renderer(cfg)
-    BOX = "/root/reference/assets/models/BoxTextured.glb"
-    for i in range(6):   # several INSTANCES so scrambling is non-rigid
-        m = np.array([[0.5, 0, 0, (i % 3 - 1) * 1.5],
-                      [0, 0.5, 0, -0.5],
-                      [0, 0, 0.5, (i // 3) * 1.5]], np.float32)
-        r.add_model(BOX, m)
-    r.camera_mut().set_pos([0.0, -2.0, -5.0])
-    d = np.array([0.0, 0.3, 1.0])
-    r.camera_mut().set_dir(d / np.linalg.norm(d))
-    r.lights_mut().point_lights.append(PointLight(
-        pos=[0.0, -3.0, 0.0], color=[6.0, 5.0, 4.0], falloff_distance=15.0,
-        casts_shadows=True))
-    r.prepare_first_frame()
-
-    rest = np.asarray(r.scene.transforms, np.float32)
-    out = r.render_dynamic(rest, check_every=1)
-    assert "refit_sah_ratio" in out
-    assert float(out["refit_sah_ratio"]) < 1.5   # rest pose ~1
-    assert r._rebuild_until < 0                  # no trigger
-
-    # scramble: teleport instances across each other (rest-pose topology
-    # now groups spatially-distant boxes -> slot boxes balloon)
-    rng = np.random.default_rng(0)
-    scrambled = rest.copy()
-    scrambled[:, :, 3] = rng.uniform(-8, 8, scrambled[:, :, 3].shape)
-    out2 = r.render_dynamic(scrambled, check_every=1)
-    ratio = float(out2["refit_sah_ratio"])
-    assert ratio > REBUILD_SAH_RATIO, f"scrambling only reached {ratio:.2f}"
-    assert r._rebuild_until > r._frame_idx - 1   # trigger armed
-
-    # next frame takes the rebuild path (no refit_sah_ratio in output)
-    out3 = r.render_dynamic(scrambled, check_every=1)
-    assert "refit_sah_ratio" not in out3

@@ -5,14 +5,13 @@ import struct
 import numpy as np
 import pytest
 
+from assets import box_path
 from tpurt.scene import GltfModelReader, MeshAttributeType, TextureType
-
-BOX = "/root/reference/assets/models/BoxTextured.glb"
 
 
 @pytest.fixture()
 def gltf_dir(tmp_path):
-    with open(BOX, "rb") as f:
+    with open(box_path(), "rb") as f:
         blob = f.read()
     offset = 12
     doc = None
@@ -33,7 +32,7 @@ def gltf_dir(tmp_path):
 
 
 def test_gltf_json_matches_glb(gltf_dir):
-    a = GltfModelReader.open(BOX, normalize_vectors=True,
+    a = GltfModelReader.open(box_path(), normalize_vectors=True,
                              coerce_image_to_format="R8G8B8A8_UNORM")
     b = GltfModelReader.open(str(gltf_dir / "scene.gltf"),
                              normalize_vectors=True,

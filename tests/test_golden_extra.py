@@ -1,6 +1,6 @@
-"""Wider golden-frame coverage (VERDICT r1 'golden coverage is thin'):
-the reference-light (spot+area) workload-shaped frame, bent normals,
-dynamic mode, and a full-frame packet-tracer-vs-XLA cross-check.
+"""Wider golden-frame coverage: the reference-light (spot+area)
+workload-shaped frame, bent normals, dynamic mode, and a full-frame
+GPU-kernel-vs-XLA tracer cross-check.
 Regenerate deliberately with tests/regen_goldens.py."""
 import os
 
@@ -51,19 +51,20 @@ def test_dynamic_golden():
                                atol=1e-3)
 
 
-def test_packet_tracer_full_frame_matches_xla():
-    """The whole frame pipeline through the Pallas packet tracer
-    (interpret mode) vs the XLA tracer — full-frame equivalence, not just
-    per-kernel parity."""
+def test_packet_tracer_full_frame_matches_xla(request):
+    """The whole frame pipeline through the GPU traversal kernel (Pallas
+    interpreter on CPU) vs the XLA tracer — full-frame equivalence, not
+    just per-kernel parity."""
     import sys
 
     sys.path.insert(0, os.path.dirname(__file__))
     from test_frame import make_renderer
 
-    r_xla = make_renderer(tracer="xla")
+    r_xla = make_renderer()
     out_xla = np.asarray(r_xla.render()["image"]).astype(np.int32)
 
-    r_pk = make_renderer(tracer="smem")
+    request.getfixturevalue("gpu_kernel_path")
+    r_pk = make_renderer()
     out_pk = np.asarray(r_pk.render()["image"]).astype(np.int32)
 
     close = (np.abs(out_pk - out_xla) <= 1).all(axis=-1)

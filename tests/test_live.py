@@ -6,12 +6,11 @@ import urllib.request
 
 import numpy as np
 
+from assets import box_path
 from tpurt.app.live import LiveApp, serve
 from tpurt.engine import Renderer, RendererConfig
 from tpurt.passes.gtao import GtaoSettings
 from tpurt.scene.lights import PointLight
-
-BOX = "/root/reference/assets/models/BoxTextured.glb"
 
 
 def _make_app():
@@ -20,7 +19,7 @@ def _make_app():
     r = Renderer(cfg)
     eye = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 0]],
                    np.float32)
-    r.add_model(BOX, eye)
+    r.add_model(box_path(), eye)
     r.camera_mut().set_pos([0.0, -0.5, -1.6])
     d = np.array([0.0, 0.2, 0.98])
     r.camera_mut().set_dir(d / np.linalg.norm(d))

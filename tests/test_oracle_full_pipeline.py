@@ -12,6 +12,7 @@ import math
 import numpy as np
 import pytest
 
+from assets import box_path
 from tpurt.engine import Renderer, RendererConfig
 from tpurt.engine.frame import render_frame
 from tpurt.passes.gtao import GtaoSettings, compute_ao, gtao_constants
@@ -21,8 +22,6 @@ from tpurt.scene.lights import DirectionalLight, PointLight
 from oracle import oracle_render
 from oracle_post import (lpm_filter_709_709, oracle_gtao_consts,
                          oracle_post_process, xegtao_full)
-
-BOX = "/root/reference/assets/models/BoxTextured.glb"
 SIZE = 128
 
 TIERS = {  # vk_xe_gtao.rs quality tiers
@@ -40,14 +39,14 @@ def _scene():
     r = Renderer(cfg)
     eye = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 0]],
                    np.float32)
-    r.add_model(BOX, eye)
+    r.add_model(box_path(), eye)
     m2 = np.array([[0.35, 0, 0, 0.75], [0, 0.35, 0, 0.3],
                    [0, 0, 0.35, -0.3]], np.float32)
-    r.add_model(BOX, m2)
+    r.add_model(box_path(), m2)
     # floor: a wide flat box just under the cubes (y is down-positive)
     mf = np.array([[4.0, 0, 0, 0], [0, 0.1, 0, 0.62], [0, 0, 4.0, 0]],
                   np.float32)
-    r.add_model(BOX, mf)
+    r.add_model(box_path(), mf)
     r.camera_mut().set_pos([0.4, -0.9, -2.1])
     d = np.array([-0.1, 0.4, 1.0])
     r.camera_mut().set_dir(d / np.linalg.norm(d))

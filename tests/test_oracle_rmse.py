@@ -7,8 +7,8 @@ tests render BASELINE configs 1-3 analogues both ways and gate the RMSE.
 import math
 
 import numpy as np
-import pytest
 
+from assets import box_path
 from tpurt.engine import Renderer, RendererConfig
 from tpurt.engine.frame import render_sample_hdr
 from tpurt.passes.gtao import GtaoSettings
@@ -17,7 +17,6 @@ from tpurt.scene.lights import (AreaLight, DirectionalLight, PointLight,
 
 from oracle import oracle_render
 
-BOX = "/root/reference/assets/models/BoxTextured.glb"
 SIZE = 128
 
 
@@ -91,11 +90,11 @@ def test_config1_point_light_hard_shadows():
     r = _renderer()
     eye = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 0]],
                    np.float32)
-    r.add_model(BOX, eye)
+    r.add_model(box_path(), eye)
     # a small occluder cube floating between light and box -> real shadows
     m = np.array([[0.2, 0, 0, 0.3], [0, 0.2, 0, -0.4], [0, 0, 0.2, -1.2]],
                  np.float32)
-    r.add_model(BOX, m)
+    r.add_model(box_path(), m)
     r.camera_mut().set_pos([0.0, -0.5, -1.6])
     d = np.array([0.0, 0.2, 0.98])
     r.camera_mut().set_dir(d / np.linalg.norm(d))
@@ -140,10 +139,10 @@ def test_config3_area_light_exclusion():
     r = _renderer()
     eye = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 0]],
                    np.float32)
-    r.add_model(BOX, eye)
+    r.add_model(box_path(), eye)
     m2 = np.array([[0.5, 0, 0, 1.6], [0, 0.5, 0, 0.0], [0, 0, 0.5, 0.0]],
                   np.float32)
-    r.add_model(BOX, m2)
+    r.add_model(box_path(), m2)
     r.camera_mut().set_pos([0.7, -0.75, -1.2])
     d = np.array([0.1, 0.75, 1.2])
     r.camera_mut().set_dir(d / np.linalg.norm(d))
@@ -163,13 +162,13 @@ def test_config3_area_light_exclusion():
     _compare(r)
 
 
-@pytest.mark.parametrize("tables", ["smem"])
-def test_config1_packet_tracer_matches_oracle(tables):
-    """The Pallas packet tracer (interpret mode) passes the same gate."""
+def test_config1_packet_tracer_matches_oracle(gpu_kernel_path):
+    """The GPU traversal kernel (Pallas interpreter on CPU) passes the same
+    gate."""
     r = _renderer(64, 64)
     eye = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 0]],
                    np.float32)
-    r.add_model(BOX, eye)
+    r.add_model(box_path(), eye)
     r.camera_mut().set_pos([0.0, -0.5, -1.6])
     d = np.array([0.0, 0.2, 0.98])
     r.camera_mut().set_dir(d / np.linalg.norm(d))
@@ -182,8 +181,8 @@ def test_config1_packet_tracer_matches_oracle(tables):
     scene = r.scene.as_pytree()
 
     ours = np.asarray(render_sample_hdr(
-        scene, cam, lights, np.zeros(2, np.float32), width=64, height=64,
-        pallas_tables=tables), np.float64)
+        scene, cam, lights, np.zeros(2, np.float32), width=64, height=64),
+        np.float64)
     full = r.scene.as_full_pytree()
     ref = oracle_render(
         {k: np.asarray(v) for k, v in full.items() if k not in ("bvh", "geom")},

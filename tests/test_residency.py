@@ -8,12 +8,11 @@ re-specializes the frame.
 """
 import numpy as np
 
+from assets import box_path
 from tpurt.engine import Renderer, RendererConfig
 from tpurt.passes.gtao import GtaoSettings
 from tpurt.scene.lights import PointLight
 from tpurt.scene.model import Residency
-
-BOX = "/root/reference/assets/models/BoxTextured.glb"
 
 
 def _renderer(size=64):
@@ -21,7 +20,7 @@ def _renderer(size=64):
                          gtao=GtaoSettings(1, 2, denoise=1))
     r = Renderer(cfg)
     eye = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 0]], np.float32)
-    r.add_model(BOX, eye)
+    r.add_model(box_path(), eye)
     r.lights_mut().point_lights.append(
         PointLight([0, 0, -2], [3, 3, 3], 10.0, True))
     r.camera_mut().set_dir([0.0, 0.0, 1.0])
@@ -77,7 +76,7 @@ def test_visibility_exclusion_changes_image():
     # model exercises the rebuild path
     eye2 = np.array([[1.0, 0, 0, 5.0], [0, 1.0, 0, 0], [0, 0, 1.0, 0]],
                     np.float32)
-    r.add_model(BOX, eye2)  # off to the side
+    r.add_model(box_path(), eye2)  # off to the side
     img = r.render_image()
     center = img[32, 32]
     assert not center.any(), "hidden model still visible at the center"

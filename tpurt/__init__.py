@@ -1,11 +1,11 @@
-"""tpurt — a TPU-native hybrid real-time ray-traced renderer.
+"""tpurt — a hybrid real-time ray-traced renderer in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 EdoardoLuciani/ARayTracingJourney (Vulkan ray tracing, Rust host):
 PBR pipeline, ray-traced shadows, point/spot/directional/area lights,
 XeGTAO ambient occlusion, FidelityFX-LPM HDR tonemapping, glTF input.
 
-Layer map (TPU-native analogue of the reference's L0-L8):
+Layer map (analogue of the reference's L0-L8):
   scene/    asset I/O + scene state      (reference: model_reader/, vk_model.rs,
                                           vk_camera.rs, lights.rs)
   bvh/      acceleration structures      (reference: vk_blas_builder.rs,
@@ -13,7 +13,7 @@ Layer map (TPU-native analogue of the reference's L0-L8):
   kernels/  ray traversal + intersection (reference: traceRayEXT hardware)
   passes/   shading / GTAO / tonemap     (reference: shaders/)
   engine/   frame orchestration          (reference: renderer.rs)
-  dist/     multi-chip sharding          (no reference counterpart: single-GPU)
+  dist/     multi-device sharding        (no reference counterpart: single-GPU)
   native/   C++ host-side asset kernels  (reference: SIMD pixel permute etc.)
 """
 

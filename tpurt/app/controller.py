@@ -3,7 +3,7 @@
 The reference binds WASD/Ctrl/Shift + mouse to the camera (main.rs:78-125):
 key moves are view-relative at SPEED per millisecond, mouse motion
 accumulates a virtual (pitch, yaw) position at SENSITIVITY and rebuilds the
-direction via the spherical formula (main.rs:117-122). A TPU render node is
+direction via the spherical formula (main.rs:117-122). A render node is
 headless, so the controller is event-driven and scriptable: feed it key/mouse
 events from any front end (or a replay file) and it updates the Camera.
 """

@@ -1,7 +1,7 @@
 """Replay-driven real-time loop — the living event loop of the app layer.
 
 The reference's main loop (main.rs:78-130) pumps winit events into the
-camera controller and renders once per MainEventsCleared. A TPU render node
+camera controller and renders once per MainEventsCleared. A render node
 is headless, so the equivalent is an *event replay* loop: a recorded stream
 of key/mouse events (JSON lines) is fed through FlyCameraController at
 real-time pacing, each iteration renders a frame, and FrameTimer prints the

@@ -25,6 +25,7 @@ from ..engine.accumulate import (
     save_checkpoint,
 )
 from ..passes.encodings import pack_unorm8, srgb_approx
+from ..utils.cache import setup_compile_cache
 from ..passes.gtao import (
     QUALITY_HIGH,
     QUALITY_LOW,
@@ -33,6 +34,7 @@ from ..passes.gtao import (
     GtaoSettings,
 )
 from ..scene.lights import AreaLight, SpotLight
+from ..utils.png import encode_png
 
 QUALITY = dict(low=QUALITY_LOW, medium=QUALITY_MEDIUM, high=QUALITY_HIGH,
                ultra=QUALITY_ULTRA)
@@ -58,9 +60,8 @@ def default_scene(renderer: Renderer, model_path: str):
 
 
 def write_png(path: str, image_u8: np.ndarray):
-    from PIL import Image
-
-    Image.fromarray(np.asarray(image_u8), "RGB").save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(np.asarray(image_u8)))
 
 
 def main(argv=None):
@@ -85,6 +86,7 @@ def main(argv=None):
     p.add_argument("--cam-dir", type=float, nargs=3, default=[0.0, 0.0, 1.0])
     p.add_argument("--profile", action="store_true")
     args = p.parse_args(argv)
+    setup_compile_cache()
 
     slices, steps = QUALITY[args.quality]
     cfg = RendererConfig(
@@ -108,12 +110,10 @@ def main(argv=None):
                  if args.checkpoint else None)
         if state is None:
             state = init_accumulation(args.height, args.width)
-        tables = renderer._pallas_tables()
         while state.num_samples < args.spp:
             batch = min(args.checkpoint_every, args.spp - state.num_samples)
             state = accumulate_samples(state, scene, cam, lights, batch,
-                                       width=args.width, height=args.height,
-                                       pallas_tables=tables)
+                                       width=args.width, height=args.height)
             if args.checkpoint:
                 save_checkpoint(args.checkpoint, state)
             print(f"accumulated {state.num_samples}/{args.spp} spp")

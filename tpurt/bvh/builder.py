@@ -1,6 +1,6 @@
 """Host-side binned-SAH BVH builder (numpy, with a C++ fast path).
 
-This is the TPU-native analogue of the driver's PREFER_FAST_TRACE BLAS build
+This is the counterpart of the driver's PREFER_FAST_TRACE BLAS build
 (reference: vk_blas_builder.rs:88-170): run once per model at upload time, it
 trades build time for traversal quality. Geometry that changes per frame goes
 through the jittable LBVH (lbvh.py) instead — the analogue of the reference's
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .flat import FlatBVH, check_traversal_depth
+from .flat import FlatBVH
 
 _N_BINS = 16
 
@@ -23,8 +23,6 @@ def build_bvh_sah(aabb_min: np.ndarray, aabb_max: np.ndarray,
     """Binned-SAH top-down build over item AABBs.
 
     Uses the C++ builder from tpurt.native when available, else numpy.
-    Raises at build time if the tree exceeds the traversal stack budget
-    (silent stack clamping in the packet kernel would corrupt results).
     """
     bvh = None
     try:
@@ -37,7 +35,6 @@ def build_bvh_sah(aabb_min: np.ndarray, aabb_max: np.ndarray,
         pass
     if bvh is None:
         bvh = _build_numpy(aabb_min, aabb_max, max_leaf_size)
-    check_traversal_depth(bvh)
     return bvh
 
 

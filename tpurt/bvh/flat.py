@@ -2,15 +2,15 @@
 
 The reference delegates BLAS/TLAS construction and traversal to the Vulkan
 driver (vk_blas_builder.rs:88-170, vk_tlas_builder.rs:38-233,
-`traceRayEXT`). On TPU we own both; the layout chosen here is a *threaded*
-(skip-link) BVH so traversal is stackless and divergence-free:
+`traceRayEXT`). Here we own both; the layout chosen here is a *threaded*
+(skip-link) BVH so traversal is stackless:
 
   node entered & internal  -> go to `entry[node]` (left child)
   node missed / leaf done  -> go to `skip[node]`  (next subtree or -1 = exit)
 
 Per-lane state is a single node pointer (i32), which maps cleanly onto both
-an XLA `while_loop` over ray batches and a Pallas kernel with the node arrays
-resident in VMEM. Leaves reference ranges of a reordered triangle buffer.
+an XLA `while_loop` over ray batches and a GPU kernel that keeps the pointer
+in a register. Leaves reference ranges of a reordered triangle buffer.
 """
 from __future__ import annotations
 
@@ -77,44 +77,6 @@ class FlatBVH:
                 assert np.all(np.asarray(tri_aabb_max)[tris] <= amax[n] + 1e-4)
         assert seen.all(), "triangle missing from all leaves"
         assert skip.min() >= -1 and skip.max() < len(entry)
-
-
-def bvh_max_depth(entry: np.ndarray, skip: np.ndarray,
-                  tri_count: np.ndarray) -> int:
-    """Max node depth (root = 0) of a threaded BVH, host-side.
-
-    In the DFS layout both children of internal node n are entry[n] (left)
-    and skip[entry[n]] (right sibling), and parents precede children, so a
-    single forward sweep assigns every depth."""
-    entry = np.asarray(entry)
-    skip = np.asarray(skip)
-    tri_count = np.asarray(tri_count)
-    m = len(entry)
-    depth = np.zeros(m, np.int64)
-    for n in range(m):
-        if tri_count[n] == 0:
-            left = entry[n]
-            right = skip[left]
-            depth[left] = depth[n] + 1
-            depth[right] = depth[n] + 1
-    return int(depth.max(initial=0))
-
-
-# The packet kernels' SMEM traversal stack (traverse_pallas.STACK_DEPTH):
-# each internal-node pop pushes 2 children (net +1), so peak stack usage is
-# depth + 2. Exceeding it would silently overwrite live entries and return
-# wrong hits — builders turn that into a loud build-time error instead.
-MAX_SAFE_DEPTH = 192 - 2
-
-
-def check_traversal_depth(bvh: "FlatBVH") -> int:
-    depth = bvh_max_depth(bvh.entry, bvh.skip, bvh.tri_count)
-    if depth > MAX_SAFE_DEPTH:
-        raise ValueError(
-            f"BVH depth {depth} exceeds the traversal stack budget "
-            f"({MAX_SAFE_DEPTH}); the packet tracer would silently corrupt "
-            f"its stack. Increase max_leaf_size or STACK_DEPTH.")
-    return depth
 
 
 def tri_aabbs(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray):

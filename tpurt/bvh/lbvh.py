@@ -1,6 +1,6 @@
 """LBVH construction in pure JAX — jittable, static shapes.
 
-This is the per-frame acceleration-structure rebuild path: the TPU-native
+This is the per-frame acceleration-structure rebuild path: the
 analogue of the reference's destroy-and-rebuild-every-frame TLAS
 (vk_tlas_builder.rs:38-233, comment at :43-46 preferring rebuild over update).
 It also doubles as a device-side BLAS builder for dynamic geometry.

@@ -1,39 +1,32 @@
-"""Sharded-geometry rendering: BVH partitioned across chips + ray ring
-all-to-all over ICI.
+"""Sharded-geometry rendering: BVH partitioned across devices + a ray ring.
 
 The replicated-BVH mode (dist/sharding.py) assumes the whole scene fits one
-chip's HBM. This mode removes that ceiling (SURVEY.md §2.4 / §7.2 step 7 —
-no reference counterpart; the reference is single-GPU): triangles are
+device's memory. This mode removes that ceiling (SURVEY.md §2.4 / §7.2 step
+7 — no reference counterpart; the reference is single-GPU): triangles are
 partitioned into D spatially-coherent shards (contiguous runs of the global
-SAH build's depth-first triangle order), each chip owns ONE shard's BVH +
-triangle tables, and rays visit every shard by rotating around the ICI ring
-(`jax.lax.ppermute`), keeping a running closest-hit (or any-hit) carry:
+SAH build's depth-first triangle order), each device owns ONE shard's BVH +
+triangle tables, and rays visit every shard by rotating around a ring of
+devices (`jax.lax.ppermute`), keeping a running closest-hit (or any-hit)
+carry:
 
     for step in range(D):
         carry = trace_local(shard, carry)      # dense local traversal
         carry = ppermute(carry, +1)            # ride the ring
 
-After D rotations every ray is back on its origin chip with the global
-result — the classic distributed-ray-tracing ring schedule, mapped onto
-XLA collectives instead of explicit sends.
+After D rotations every ray is back on its origin device with the global
+result — the classic distributed-ray-tracing ring schedule, mapped onto XLA
+collectives instead of explicit sends. Each stop traces through the tracer
+entry (kernels/trace.py).
 
-Two tiers share the schedule:
+The shading tables can shard too: with `shade_tables` (from shard_tables),
+per-triangle attribute rows and texture rows live row-sharded across the
+devices and are served by `ring_gather` — a D-step gather tour that is the
+table analogue of the ray ring. Hits carry GLOBAL triangle ids, so table
+sharding is independent of the spatial BVH partition. Without them the
+shading tables are replicated.
 
-* tables="xla" — the original prototype: flat-BVH XLA tracer, shading
-  attribute/texture tables replicated.
-* tables="bvh8" — the flagship tier: the Pallas BVH8 packet kernels trace
-  each local shard (rays stay in packet-swizzled form for the whole tour;
-  ppermute is layout-preserving so the 32x32 tile coherence survives the
-  rotations), ALL shadow rays ride ONE tour through the fused multi-light
-  kernel (trace_any_bvh8_multi's kernel), and the shading tables shard
-  too: per-triangle attribute rows and texture quad rows live row-sharded
-  across chips and are served by `ring_gather` — a D-step gather tour that
-  is the table analogue of the ray ring. Hits carry GLOBAL triangle ids
-  (pack_tris_hbm bakes them into the rows), so table sharding is fully
-  decoupled from the spatial BVH partition.
-
-Per-chip HBM for every component drops ~D× (hbm_accounting() reports the
-exact bytes; test_dist_geometry.py asserts the ceiling drop).
+Per-device memory for every sharded component drops ~D× (hbm_accounting()
+reports the exact bytes; test_dist_geometry.py asserts the ceiling drop).
 """
 from __future__ import annotations
 
@@ -54,25 +47,20 @@ from ..bvh.flat import tri_aabbs
 from ..passes.encodings import pack_unorm8, quantize_r11g11b10f, quantize_r16f
 from ..passes.gtao import (GtaoSettings, ao_visibility_u8, compute_ao_band)
 from ..passes.rays import T_MAX, T_MIN, camera_rays
-from ..passes.shade import SHADOW_T_MIN, shade
+from ..passes.shade import shade
 from ..passes.tonemap import tonemap_frame
-from ..kernels.traverse import trace_any, trace_closest
+from ..kernels.trace import trace_any, trace_closest
 
 MAX_LEAF = 4
 
 
-def shard_geometry(scene: dict, n_shards: int, tables: str = "xla") -> dict:
+def shard_geometry(scene: dict, n_shards: int) -> dict:
     """Host-side: partition the flattened scene's triangles into n_shards
     contiguous runs of the global BVH's depth-first order (spatially
     coherent), build one SAH BVH per shard, pad all shards to equal shapes,
-    and stack with a leading shard axis.
-
-    tables="xla" returns dict(bvh={... (D, Mmax, ...)},
-    geom={... (D, Tmax, ...)}) for the flat XLA ring tracer;
-    tables="bvh8" returns dict(nodes8 (D, M8max, 128),
-    tris128 (D, Tp, 128)) — each shard's binary build collapsed to BVH8
-    rows + HBM triangle rows (kernels/traverse_bvh8). Either way the
-    triangle ids baked into the rows stay GLOBAL indices."""
+    and stack with a leading shard axis. Returns dict(bvh={... (D, Mmax,
+    ...)}, geom={... (D, Tmax, ...)}); the triangle ids stay GLOBAL
+    indices."""
     geom = {k: np.asarray(v) for k, v in scene["geom"].items()}
     order = geom["tri_id"]                       # global ids in BVH order
     t = len(order)
@@ -90,27 +78,6 @@ def shard_geometry(scene: dict, n_shards: int, tables: str = "xla") -> dict:
         ro = np.asarray(bvh.tri_order)
         shards.append((bvh, dict(v0=v0[ro], e1=e1[ro], e2=e2[ro],
                                  tri_id=gid[ro].astype(np.int32))))
-
-    if tables == "bvh8":
-        from ..bvh.wide import collapse8
-        from ..kernels.traverse_pallas import pack_tris_hbm
-
-        nodes8_l = [collapse8(bvh.as_pytree())[0] for bvh, _ in shards]
-        tris_l = [np.asarray(pack_tris_hbm(g)) for _, g in shards]
-        m8 = max(n.shape[0] for n in nodes8_l)
-        tp = max(tr.shape[0] for tr in tris_l)
-
-        def pad_rows0(a, rows):
-            out = np.zeros((rows,) + a.shape[1:], a.dtype)
-            out[:len(a)] = a
-            return out
-
-        # padded node rows are unreachable (only pushed child ids are ever
-        # visited); padded tri rows are degenerate (e1 = e2 = 0 -> no hit)
-        return dict(
-            nodes8=np.stack([pad_rows0(n, m8) for n in nodes8_l]),
-            tris128=np.stack([pad_rows0(tr, tp) for tr in tris_l]),
-        )
 
     m_max = max(s[0].num_nodes for s in shards)
     t_max = max(max(len(s[1]["v0"]) for s in shards), 1)
@@ -192,11 +159,12 @@ def shard_tables(scene: dict, n_shards: int):
 
 
 def ring_gather(table, chunk: int, idx, axis: str, n: int):
-    """Distributed row gather over the ICI ring: `table` is this chip's
-    (chunk, ...) slice of a row-sharded global table (chip c owns rows
-    [c*chunk, (c+1)*chunk)); `idx` are GLOBAL row indices. The (idx, acc)
-    block tours the ring; at each stop the resident chip serves the rows
-    it owns; after n steps the block is home with every row filled.
+    """Distributed row gather over the device ring: `table` is this
+    device's (chunk, ...) slice of a row-sharded global table (device c
+    owns rows [c*chunk, (c+1)*chunk)); `idx` are GLOBAL row indices. The
+    (idx, acc) block tours the ring; at each stop the resident device
+    serves the rows it owns; after n steps the block is home with every
+    row filled.
 
     One tour costs n local gathers of |idx| rows + n ppermutes of the
     (idx + rows) payload — the table-lookup analogue of the ray ring, and
@@ -218,85 +186,13 @@ def ring_gather(table, chunk: int, idx, axis: str, n: int):
     return carry[1]
 
 
-def _rotate(axis, n, tree):
-    perm = [(i, (i + 1) % n) for i in range(n)]
-    return jax.tree.map(lambda x: jax.lax.ppermute(x, axis, perm), tree)
-
-
-def _ring_closest_bvh8(nodes8, tris128, origin, direction, t_min, t_max,
-                       axis, n, band, width, max_leaf, interpret):
-    """BVH8 packet ray-ring closest hit. Rays are packet-swizzled ONCE at
-    tour start and stay in packet layout for every rotation (ppermute is
-    a pure transport — the 32x32 tile coherence the kernel needs survives);
-    the running-best (t, tri, u, v) planes ride along, with t fed back as
-    each stop's tmax so the shrinking bound culls remote subtrees exactly
-    like the single-chip kernel's own t bound."""
-    from ..kernels.traverse_bvh8 import (FAT_DEFAULT, WHEN_PUSH_DEFAULT,
-                                         _trace_packets_bvh8)
-    from ..kernels.traverse_pallas import _from_packets, _rays_to_packets
-
-    rays = _rays_to_packets(origin, direction, t_min, t_max, band, width)
-    t = rays["tmax"]
-    tri = jnp.full_like(t, -1.0).astype(jnp.int32)
-    u = jnp.zeros_like(t)
-    v = jnp.zeros_like(t)
-    carry = (rays, t, tri, u, v)
-    for _ in range(n):
-        rays_c, t, tri, u, v = carry
-        t_n, tri_n, u_n, v_n = _trace_packets_bvh8(
-            nodes8, tris128, dict(rays_c, tmax=t), max_leaf,
-            any_hit=False, interpret=interpret, fat=FAT_DEFAULT,
-            when_push=WHEN_PUSH_DEFAULT)
-        better = t_n < t
-        t = jnp.where(better, t_n, t)
-        tri = jnp.where(better, tri_n, tri)
-        u = jnp.where(better, u_n, u)
-        v = jnp.where(better, v_n, v)
-        carry = _rotate(axis, n, (rays_c, t, tri, u, v))
-    _, t, tri, u, v = carry
-    g = partial(_from_packets, height=band, width=width)
-    return dict(t=g(t), tri=g(tri), u=g(u), v=g(v))
-
-
-def _ring_any_multi_bvh8(nodes8, tris128, origin, dirs, t_min, t_maxs,
-                         axis, n, band, width, max_leaf, interpret):
-    """Fused multi-light any-hit ray ring: ONE tour serves ALL S shadow-ray
-    sets — each stop runs the fused multi-set kernel (all sets share the
-    pixel tile's traversal stack, kernels/traverse_bvh8), and lanes that
-    occlude park with tmax=0 for the rest of the tour. Returns (S, band*W)
-    bool, bit-identical to S separate single-set tours."""
-    from ..kernels.traverse_bvh8 import (FAT_ANY_DEFAULT,
-                                         WHEN_PUSH_DEFAULT,
-                                         _trace_packets_bvh8_any_multi)
-    from ..kernels.traverse_pallas import _from_packets, _rays_to_packets
-
-    n_sets = len(dirs)
-    sets = [_rays_to_packets(origin, dirs[s], t_min, t_maxs[s], band, width)
-            for s in range(n_sets)]
-    occs = [jnp.zeros_like(sets[s]["tmax"]) for s in range(n_sets)]
-    carry = (sets, occs)
-    for _ in range(n):
-        sets, occs = carry
-        live = [dict(sets[s], tmax=jnp.where(occs[s] > 0.0, 0.0,
-                                             sets[s]["tmax"]))
-                for s in range(n_sets)]
-        hit = _trace_packets_bvh8_any_multi(nodes8, tris128, live,
-                                            max_leaf, interpret,
-                                            fat=FAT_ANY_DEFAULT,
-                                            when_push=WHEN_PUSH_DEFAULT)
-        occs = [jnp.maximum(occs[s], hit[s]) for s in range(n_sets)]
-        carry = _rotate(axis, n, (sets, occs))
-    _, occs = carry
-    g = partial(_from_packets, height=band, width=width)
-    return jnp.stack([g(o) > 0.5 for o in occs])
-
-
 def hbm_accounting(scene: dict, shards: dict, tables: dict | None,
                    n_shards: int) -> dict:
-    """Bytes-per-chip report: replicated single-chip residency vs the
-    sharded-geometry mode's per-chip residency (one shard of the traversal
-    tables + one chunk of each shading table + the replicated smalls).
-    The headline is ceiling_ratio: how much bigger a scene fits per chip."""
+    """Bytes-per-device report: replicated single-device residency vs the
+    sharded-geometry mode's per-device residency (one shard of the
+    traversal tables + one chunk of each shading table + the replicated
+    smalls). The headline is ceiling_ratio: how much bigger a scene fits
+    per device."""
     def nbytes(a):
         return int(np.asarray(a).nbytes) if a is not None else 0
 
@@ -324,7 +220,7 @@ def hbm_accounting(scene: dict, shards: dict, tables: dict | None,
 
     per_chip = dict(small_replicated=small)
     per_chip["traversal"] = sum(
-        nbytes(v) // n_shards for v in shards.values())
+        nbytes(v) // n_shards for v in jax.tree.leaves(shards))
     if tables is not None:
         per_chip["tri_attr"] = nbytes(tables["tri_attr"]) // n_shards
         per_chip["texture_rows"] = nbytes(
@@ -390,7 +286,7 @@ def freeze_meta(meta: dict) -> tuple:
 
 @partial(jax.jit, static_argnames=("width", "height", "gtao_settings",
                                    "mesh", "axis", "enable_gtao",
-                                   "enable_tonemap", "tables", "meta"))
+                                   "enable_tonemap", "meta"))
 def render_frame_sharded_geometry(scene: dict, shards: dict, camera: dict,
                                   lights: dict, gtao_consts: dict,
                                   lpm_derived: dict, noise_index, *,
@@ -398,31 +294,28 @@ def render_frame_sharded_geometry(scene: dict, shards: dict, camera: dict,
                                   gtao_settings: GtaoSettings, mesh: Mesh,
                                   axis: str = "x", enable_gtao: bool = True,
                                   enable_tonemap: bool = True,
-                                  tables: str = "xla",
                                   shade_tables: dict | None = None,
                                   meta: tuple | None = None):
     """One frame with geometry sharded across the mesh: primary AND shadow
-    rays ride the ICI ring; G-buffer post passes run like the replicated
-    mode. `shards` comes from shard_geometry(scene, n, tables).
+    rays ride the device ring; G-buffer post passes run like the
+    replicated mode. `shards` comes from shard_geometry(scene, n).
 
-    tables="xla": the prototype tier — flat-BVH XLA ring tracer, shading
-    tables replicated (scene carries them; its bvh/geom are unused).
-    tables="bvh8": the flagship tier — Pallas BVH8 packet ring + ONE fused
-    multi-light shadow tour + row-sharded shading tables served by
-    ring_gather. Pass shade_tables/meta from shard_tables()/freeze_meta();
-    the big tables in `scene` are replaced by 1-row placeholders here, so
-    per-chip HBM is ~1/D of every large component (hbm_accounting)."""
+    With shade_tables/meta (from shard_tables()/freeze_meta()) the shading
+    tables are row-sharded and served by ring_gather; the big tables in
+    `scene` are then replaced by 1-row placeholders here, so per-device
+    memory is ~1/D of every large component (hbm_accounting). Without
+    them the shading tables are replicated."""
     n = mesh.shape[axis]
     assert height % n == 0, f"height {height} not divisible by mesh size {n}"
     band = height // n
     shards = jax.tree.map(jnp.asarray, shards)
-
-    if tables == "bvh8":
-        from ..bvh.wide import LEAF8_MAX
-        from ..kernels.traverse_pallas import _resolve_interpret
-        interp = _resolve_interpret(None)
+    sharded_tables = shade_tables is not None
+    if sharded_tables:
         attr_chunk, quad_chunk, quad_shape, _ = meta
         shade_tables = jax.tree.map(jnp.asarray, shade_tables)
+    else:
+        quad_shape = None
+        shade_tables = {}
 
     def post_passes(g, row0, noise_index):
         color = quantize_r11g11b10f(g["color"]).reshape(band, width, 3)
@@ -448,7 +341,6 @@ def render_frame_sharded_geometry(scene: dict, shards: dict, camera: dict,
 
     def per_chip(scene, shards, tbl, camera, lights, gtao_consts,
                  lpm_derived, noise_index):
-        del tbl
         me = jax.lax.axis_index(axis)
         row0 = me * band
         bvh = {k: v[0] for k, v in shards["bvh"].items()}
@@ -462,40 +354,19 @@ def render_frame_sharded_geometry(scene: dict, shards: dict, camera: dict,
         def ring_shadows(o, d, tmin, tmax):
             return _ring_trace_any(bvh, geom, o, d, tmin, tmax, axis, n)
 
-        g = shade(scene, camera, lights, hits, origin, direction,
-                  shadow_trace_fn=ring_shadows)
-        return post_passes(g, row0, noise_index)
-
-    def per_chip_bvh8(scene, shards, tbl, camera, lights, gtao_consts,
-                      lpm_derived, noise_index):
-        me = jax.lax.axis_index(axis)
-        row0 = me * band
-        nodes8 = shards["nodes8"][0]
-        tris128 = shards["tris128"][0]
-
-        origin, direction = camera_rays(camera, width, height,
-                                        row_start=row0, num_rows=band)
-        hits = _ring_closest_bvh8(nodes8, tris128, origin, direction,
-                                  T_MIN, T_MAX, axis, n, band, width,
-                                  LEAF8_MAX, interp)
-        attr = ring_gather(tbl["tri_attr"][0], attr_chunk,
-                           jnp.maximum(hits["tri"], 0), axis, n)
-
-        def shadow_multi(o, dirs, tmin, tmaxs):
-            return _ring_any_multi_bvh8(nodes8, tris128, o, dirs, tmin,
-                                        tmaxs, axis, n, band, width,
-                                        LEAF8_MAX, interp)
-
-        quad_fn = None
-        if "quad_rows" in tbl:
-            def quad_fn(flat):
-                return ring_gather(tbl["quad_rows"][0], quad_chunk, flat,
-                                   axis, n)
+        attr = quad_fn = None
+        if sharded_tables:
+            attr = ring_gather(tbl["tri_attr"][0], attr_chunk,
+                               jnp.maximum(hits["tri"], 0), axis, n)
+            if "quad_rows" in tbl:
+                def quad_fn(flat):
+                    return ring_gather(tbl["quad_rows"][0], quad_chunk, flat,
+                                       axis, n)
 
         g = shade(scene, camera, lights, hits, origin, direction,
                   height=band, width=width, image_rows=height,
-                  attr_rows=attr, quad_gather=quad_fn, quad_shape=quad_shape,
-                  shadow_trace_multi_fn=shadow_multi)
+                  shadow_trace_fn=ring_shadows, attr_rows=attr,
+                  quad_gather=quad_fn, quad_shape=quad_shape)
         return post_passes(g, row0, noise_index)
 
     out_spec = dict(image=P(axis, None, None), color=P(axis, None, None),
@@ -511,27 +382,20 @@ def render_frame_sharded_geometry(scene: dict, shards: dict, camera: dict,
 
     scene_rep["bvh"] = jax.tree.map(placeholder, scene["bvh"])
     scene_rep["geom"] = jax.tree.map(placeholder, scene["geom"])
-
-    if tables == "bvh8":
-        # the sharded tables replace the replicated ones: shade() reads the
-        # attr rows / quad rows through the ring, so the big tables shrink
-        # to 1-row placeholders (branch selection in shade keys on presence)
+    if sharded_tables:
+        # shade() reads the attr rows / texture rows through the ring, so
+        # the big replicated tables shrink to placeholders (branch
+        # selection in shade keys on presence)
         for k in ("tri_attr", "tex_quad48", "tex_mip_quad", "tex_mip_pair",
                   "tex_mip_block4", "tex_atlas"):
             if scene_rep.get(k) is not None:
                 scene_rep[k] = placeholder(scene_rep[k])
-        body = per_chip_bvh8
-        shard_specs = dict(nodes8=P(axis), tris128=P(axis))
-        tbl_specs = {k: P(axis) for k in shade_tables}
-    else:
-        body = per_chip
-        shade_tables = {}
-        tbl_specs = {}
-        shard_specs = dict(bvh={k: P(axis) for k in shards["bvh"]},
-                           geom={k: P(axis) for k in shards["geom"]})
 
+    shard_specs = dict(bvh={k: P(axis) for k in shards["bvh"]},
+                       geom={k: P(axis) for k in shards["geom"]})
+    tbl_specs = {k: P(axis) for k in shade_tables}
     fn = shard_map(
-        body, mesh=mesh,
+        per_chip, mesh=mesh,
         in_specs=(P(), shard_specs, tbl_specs, P(), P(), P(), P(), P()),
         out_specs=out_spec,
         check_vma=False,

@@ -1,25 +1,27 @@
-"""Multi-chip frame rendering: pixel-tile decomposition over a device mesh.
+"""Multi-device frame rendering: pixel-band decomposition over a mesh.
 
 The reference is single-GPU/single-queue (renderer.rs:188) — this layer has
-no counterpart to translate, so it is designed TPU-first (SURVEY.md §2.4):
+no counterpart to translate (SURVEY.md §2.4):
 
-* mesh axis "x" over chips; the image is decomposed into horizontal bands,
+* mesh axis "x" over devices (a flat axis: the cards of one host reach each
+  other all to all); the image is decomposed into horizontal bands,
 * the scene (BVH + geometry + textures) is replicated — the analogue of each
-  chip owning a full TLAS; rays never cross chips,
+  device owning a full TLAS; rays never cross devices,
 * ray tracing + shading (the dominant cost) run fully sharded inside
-  shard_map, one band per chip, through the SAME G-buffer producer as the
-  single-chip frame (engine.frame.render_gbuffer) — so the packet tracer,
-  spp averaging, and max_leaf plumbing are identical,
-* the quantized G-buffer is then all-gathered over ICI (a few MB at 1080p)
-  because GTAO gathers depth samples up to its screen-space radius away —
-  cheaper and simpler at this scale than per-pass halo exchanges,
-* GTAO + LPM tonemap run on the gathered G-buffer per chip for its own band,
-  and the outputs are assembled by the out_specs (bands sharded on "x").
+  shard_map, one band per device, through the SAME G-buffer producer as the
+  single-device frame (engine.frame.render_gbuffer) — so the tracer, spp
+  averaging, and max_leaf plumbing are identical,
+* the quantized G-buffer is then all-gathered (a few MB at 1080p) because
+  GTAO gathers depth samples up to its screen-space radius away — cheaper
+  and simpler at this scale than per-pass halo exchanges,
+* GTAO + LPM tonemap run on the gathered G-buffer per device for its own
+  band, and the outputs are assembled by the out_specs (bands sharded on
+  "x").
 
 A replicated-BVH + sharded-rays strategy is the right first point in the
-design space (geometry fits HBM comfortably; rays are embarrassingly
-parallel). A sharded-geometry + ray all-to-all mode (geometry.py) covers
-scenes exceeding per-chip HBM.
+design space (geometry fits device memory comfortably; rays are
+embarrassingly parallel). A sharded-geometry + ray ring mode (geometry.py)
+covers scenes exceeding one device's memory.
 """
 from __future__ import annotations
 
@@ -50,19 +52,18 @@ def make_mesh(n_devices: int | None = None, axis: str = "x") -> Mesh:
 
 @partial(jax.jit, static_argnames=("width", "height", "gtao_settings", "mesh",
                                    "axis", "enable_gtao", "enable_tonemap",
-                                   "pallas_tables", "spp", "aniso_taps"))
+                                   "spp", "aniso_taps"))
 def render_frame_sharded(scene: dict, camera: dict, lights: dict,
                          gtao_consts: dict, lpm_derived: dict, noise_index,
                          *, width: int, height: int,
                          gtao_settings: GtaoSettings, mesh: Mesh,
                          axis: str = "x", enable_gtao: bool = True,
-                         enable_tonemap: bool = True,
-                         pallas_tables: str = "", spp: int = 1,
+                         enable_tonemap: bool = True, spp: int = 1,
                          aniso_taps: int = 1):
     """Render one frame over a device mesh; height must be divisible by the
-    mesh size. Supports the full RendererConfig surface (packet-tracer tier,
-    spp, aniso_taps, gtao/tonemap toggles) and returns the same output dict
-    as the single-chip render_frame: image/color/depth/normal/ao
+    mesh size. Supports the full RendererConfig surface (spp, aniso_taps,
+    gtao/tonemap toggles) and returns the same output dict as the
+    single-device render_frame: image/color/depth/normal/ao
     (+bent_normals), every array band-sharded over `axis`."""
     n = mesh.shape[axis]
     assert height % n == 0, f"height {height} not divisible by mesh size {n}"
@@ -73,8 +74,7 @@ def render_frame_sharded(scene: dict, camera: dict, lights: dict,
         row0 = me * band
 
         g = render_gbuffer(scene, camera, lights, width=width, height=height,
-                           row_start=row0, num_rows=band,
-                           pallas_tables=pallas_tables, spp=spp,
+                           row_start=row0, num_rows=band, spp=spp,
                            aniso_taps=aniso_taps)
 
         color = quantize_r11g11b10f(g["color"]).reshape(band, width, 3)
@@ -83,12 +83,12 @@ def render_frame_sharded(scene: dict, camera: dict, lights: dict,
 
         bent = None
         if enable_gtao:
-            # ICI all-gather of the band G-buffer -> full-frame depth/normals,
+            # all-gather of the band G-buffer -> full-frame depth/normals,
             # needed because GTAO samples up to its screen-space radius away.
             depth_full = jax.lax.all_gather(depth, axis, axis=0, tiled=True)
             normal_full = jax.lax.all_gather(normal, axis, axis=0, tiled=True)
 
-            # each chip computes GTAO only for its band (+ denoise halo)
+            # each device computes GTAO only for its band (+ denoise halo)
             ao_term = compute_ao_band(depth_full, normal_full, gtao_consts,
                                       gtao_settings, noise_index, row0, band)
             ao = ao_visibility_u8(ao_term, gtao_settings)

@@ -3,7 +3,7 @@
 The ground-truth configuration (BASELINE.json config 5: 1024 spp converged
 at 1080p) renders many jittered samples of the frame and averages them in
 linear HDR. The reference app is stateless per frame and has no
-checkpointing (SURVEY.md §5); long restartable renders are a TPU-framework
+checkpointing (SURVEY.md §5); long restartable renders are this renderer's
 addition: the accumulation state (sum buffer + sample counter + RNG key) is
 a pytree that can be saved/loaded mid-render.
 """
@@ -42,11 +42,9 @@ def init_accumulation(height: int, width: int, seed: int = 0) -> AccumulationSta
 
 def accumulate_samples(state: AccumulationState, scene: dict, camera: dict,
                        lights: dict, num_samples: int, *, width: int,
-                       height: int,
-                       pallas_tables: str = "") -> AccumulationState:
+                       height: int) -> AccumulationState:
     """Add `num_samples` stratified-jitter samples to the accumulator.
-    Sample 0 uses the pixel center (so 1-spp equals the real-time frame).
-    pallas_tables routes rays through the packet tracer on TPU."""
+    Sample 0 uses the pixel center (so 1-spp equals the real-time frame)."""
     color_sum = state.color_sum
     key = state.key
     for s in range(num_samples):
@@ -56,17 +54,16 @@ def accumulate_samples(state: AccumulationState, scene: dict, camera: dict,
             key, sub = jax.random.split(key)
             jitter = jax.random.uniform(sub, (2,), minval=-0.5, maxval=0.5)
         color_sum = color_sum + render_sample_hdr(
-            scene, camera, lights, jitter, width=width, height=height,
-            pallas_tables=pallas_tables)
+            scene, camera, lights, jitter, width=width, height=height)
     return AccumulationState(color_sum=color_sum,
                              num_samples=state.num_samples + num_samples,
                              key=key)
 
 
 @partial(jax.jit, static_argnames=("width", "height", "num_samples",
-                                   "pallas_tables", "include_center"))
+                                   "include_center"))
 def _accumulate_scan(color_sum, key, scene, camera, lights, *, width, height,
-                     num_samples, pallas_tables, include_center):
+                     num_samples, include_center):
     """num_samples jittered samples in ONE device program (lax.scan) —
     avoids a host round-trip per sample."""
     def body(carry, s):
@@ -76,8 +73,7 @@ def _accumulate_scan(color_sum, key, scene, camera, lights, *, width, height,
         if include_center:
             jitter = jnp.where(s == 0, jnp.zeros(2), jitter)
         acc = acc + render_sample_hdr(scene, camera, lights, jitter,
-                                      width=width, height=height,
-                                      pallas_tables=pallas_tables)
+                                      width=width, height=height)
         return (acc, key), None
 
     (color_sum, key), _ = jax.lax.scan(
@@ -87,13 +83,12 @@ def _accumulate_scan(color_sum, key, scene, camera, lights, *, width, height,
 
 def accumulate_samples_scan(state: AccumulationState, scene: dict,
                             camera: dict, lights: dict, num_samples: int, *,
-                            width: int, height: int,
-                            pallas_tables: str = "") -> AccumulationState:
-    """Scan-based accumulation: the whole batch runs as one jitted program.
-    Preferred on TPU where per-dispatch RPC latency dominates."""
+                            width: int, height: int) -> AccumulationState:
+    """Scan-based accumulation: the whole batch runs as one jitted program,
+    with no host round trip per sample."""
     color_sum, key = _accumulate_scan(
         state.color_sum, state.key, scene, camera, lights, width=width,
-        height=height, num_samples=num_samples, pallas_tables=pallas_tables,
+        height=height, num_samples=num_samples,
         include_center=(state.num_samples == 0))
     return AccumulationState(color_sum=color_sum,
                              num_samples=state.num_samples + num_samples,

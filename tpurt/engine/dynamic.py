@@ -2,7 +2,7 @@
 
 The reference destroys and rebuilds its TLAS every frame from the instances'
 3x4 transforms (vk_tlas_builder.rs:38-233, recreate_tlas called in
-record_main_command, renderer.rs:651). This is the TPU-native equivalent:
+record_main_command, renderer.rs:651). This is the JAX equivalent:
 instance transforms are ordinary per-frame jit inputs; the frame program
 transforms object-space geometry to world, rebuilds the world LBVH (Morton
 sort + Karras emit — bvh/lbvh.py) *inside the same jitted program*, and
@@ -11,6 +11,9 @@ traces against it. Nothing is recompiled when transforms change.
 The static path (engine/frame.py) skips the rebuild entirely — the right
 choice when transforms are constant — so the two modes bracket the
 reference's BLAS(static)/TLAS(dynamic) split.
+
+The instance transforms are f32 products pinned to HIGHEST precision: a GPU
+would otherwise run them in TF32, which keeps about three decimal digits.
 """
 from __future__ import annotations
 
@@ -20,21 +23,22 @@ import jax
 import jax.numpy as jnp
 
 from ..bvh.lbvh import build_lbvh
-from ..kernels.traverse import trace_closest
+from ..kernels.trace import trace_closest
 from ..passes.encodings import pack_unorm8, quantize_r11g11b10f, quantize_r16f
 from ..passes.gtao import GtaoSettings, compute_ao
 from ..passes.rays import T_MAX, T_MIN, camera_rays
 from ..passes.shade import shade
 from ..passes.tonemap import tonemap_frame
+from ..passes.vec import normalize
+
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _transform_points(transforms, inst, pts):
     m = transforms[inst]                       # (V, 3, 4)
-    return jnp.einsum("vij,vj->vi", m[:, :, :3], pts) + m[:, :, 3]
-
-
-def _normalize(v):
-    return v / jnp.maximum(jnp.linalg.norm(v, axis=-1, keepdims=True), 1e-20)
+    return jnp.einsum("vij,vj->vi", m[:, :, :3], pts,
+                      precision=_HIGHEST) + m[:, :, 3]
 
 
 def _tri_attr(tv, tri_prim, vtx_pos, vtx_uv, vtx_normal, vtx_tangent,
@@ -77,11 +81,13 @@ def build_world_tables(obj_scene: dict, transforms):
     vtx_pos = _transform_points(transforms, inst, obj_scene["obj_vtx_pos"])
 
     inv3t = jnp.transpose(jnp.linalg.inv(transforms[:, :, :3]), (0, 2, 1))
-    vtx_normal = _normalize(
-        jnp.einsum("vij,vj->vi", inv3t[inst], obj_scene["obj_vtx_normal"]))
+    vtx_normal = normalize(
+        jnp.einsum("vij,vj->vi", inv3t[inst], obj_scene["obj_vtx_normal"],
+                   precision=_HIGHEST))
     tan = obj_scene["obj_vtx_tangent"]
-    tan_xyz = _normalize(
-        jnp.einsum("vij,vj->vi", transforms[inst][:, :, :3], tan[:, :3]))
+    tan_xyz = normalize(
+        jnp.einsum("vij,vj->vi", transforms[inst][:, :, :3], tan[:, :3],
+                   precision=_HIGHEST))
     vtx_tangent = jnp.concatenate([tan_xyz, tan[:, 3:4]], axis=1)
 
     tv = obj_scene["tri_vertex"]
@@ -118,31 +124,21 @@ def build_world_tables(obj_scene: dict, transforms):
 
 @partial(jax.jit, static_argnames=("width", "height", "gtao_settings",
                                    "enable_gtao", "enable_tonemap",
-                                   "use_pallas", "aniso_taps"))
+                                   "aniso_taps"))
 def render_frame_dynamic(obj_scene: dict, transforms, camera: dict,
                          lights: dict, gtao_consts: dict, lpm_derived: dict,
                          noise_index, *, width: int, height: int,
                          gtao_settings: GtaoSettings = GtaoSettings(),
                          enable_gtao: bool = True,
-                         enable_tonemap: bool = True,
-                         use_pallas: bool = False, aniso_taps: int = 1):
+                         enable_tonemap: bool = True, aniso_taps: int = 1):
     """One frame with animated instance transforms: BVH rebuilt in-jit
-    (LBVH leaves hold 1 triangle). use_pallas routes rays through the HBM
-    packet tracer — the freshly built (traced) tables are packed in-jit."""
+    (LBVH leaves hold 1 triangle), traced through the tracer entry."""
     scene = build_world_tables(obj_scene, jnp.asarray(transforms, jnp.float32))
 
     origin, direction = camera_rays(camera, width, height)
-    if use_pallas:
-        from ..kernels.traverse_pallas import trace_closest_packets
-
-        hits = trace_closest_packets(scene["bvh"], scene["geom"], origin,
-                                     direction, T_MIN, T_MAX, height=height,
-                                     width=width, max_leaf=1, tables="hbm")
-    else:
-        hits = trace_closest(scene["bvh"], scene["geom"], origin, direction,
-                             T_MIN, T_MAX, max_leaf=1)
+    hits = trace_closest(scene["bvh"], scene["geom"], origin, direction,
+                         T_MIN, T_MAX, max_leaf=1)
     g = shade(scene, camera, lights, hits, origin, direction,
-              pallas_tables="hbm" if use_pallas else "",
               height=height, width=width, max_leaf=1,
               aniso_taps=aniso_taps)
 
@@ -160,122 +156,3 @@ def render_frame_dynamic(obj_scene: dict, transforms, camera: dict,
     else:
         image = pack_unorm8(jnp.clip(color, 0.0, 1.0))
     return dict(image=image, color=color, depth=depth, normal=normal, ao=ao)
-
-
-REBUILD_SAH_RATIO = 2.0   # refit decay threshold that flips to rebuild
-
-
-def make_refit_data(scene) -> dict:
-    """Host-side static refit metadata from a flattened scene (FlatScene):
-    the rest-pose BVH8 rows, their BFS level partition, and the SAH
-    triangle order. Compute once; feed to render_frame_dynamic_refit."""
-    import numpy as np
-
-    from ..bvh.wide import refit_plan, refit_quality
-
-    nodes8 = np.asarray(scene.bvh["nodes8"])
-    v0 = np.asarray(scene.geom["v0"])
-    v1 = v0 + np.asarray(scene.geom["e1"])
-    v2 = v0 + np.asarray(scene.geom["e2"])
-    tri_min = np.minimum(np.minimum(v0, v1), v2)
-    tri_max = np.maximum(np.maximum(v0, v1), v2)
-    rest_q = float(refit_quality(jnp.asarray(nodes8), jnp.asarray(tri_min),
-                                 jnp.asarray(tri_max)))
-    return dict(nodes8=jnp.asarray(nodes8),
-                levels=tuple(jnp.asarray(l)
-                             for l in refit_plan(nodes8)),
-                order=jnp.asarray(np.asarray(scene.geom["tri_id"]),
-                                  jnp.int32),
-                rest_quality=jnp.float32(rest_q))
-
-
-@partial(jax.jit, static_argnames=("width", "height", "gtao_settings",
-                                   "enable_gtao", "enable_tonemap",
-                                   "aniso_taps"))
-def render_frame_dynamic_refit(obj_scene: dict, refit: dict, transforms,
-                               camera: dict, lights: dict, gtao_consts: dict,
-                               lpm_derived: dict, noise_index, *,
-                               width: int, height: int,
-                               gtao_settings: GtaoSettings = GtaoSettings(),
-                               enable_gtao: bool = True,
-                               enable_tonemap: bool = True,
-                               aniso_taps: int = 1):
-    """Dynamic frame via in-jit BVH8 REFIT instead of a full rebuild: the
-    rest-pose SAH/BVH8 topology is kept and every slot AABB is recomputed
-    from the transformed triangles (bvh/wide.refit_bvh8) — the analogue of
-    the reference's static-BLAS + per-frame-TLAS split (renderer.rs:637-651)
-    done the TPU way: one O(T) box pass + a 6-level bottom-up sweep, then
-    the SAME BVH8 packet tracer as the static path. Tree quality degrades
-    only as instances move far from the rest pose (rebuild then)."""
-    from ..bvh.wide import LEAF8_MAX, refit_bvh8, refit_quality
-
-    transforms = jnp.asarray(transforms, jnp.float32)
-    inst = obj_scene["vtx_instance"]
-    vtx_pos = _transform_points(transforms, inst, obj_scene["obj_vtx_pos"])
-
-    inv3t = jnp.transpose(jnp.linalg.inv(transforms[:, :, :3]), (0, 2, 1))
-    vtx_normal = _normalize(
-        jnp.einsum("vij,vj->vi", inv3t[inst], obj_scene["obj_vtx_normal"]))
-    tan = obj_scene["obj_vtx_tangent"]
-    tan_xyz = _normalize(
-        jnp.einsum("vij,vj->vi", transforms[inst][:, :, :3], tan[:, :3]))
-    vtx_tangent = jnp.concatenate([tan_xyz, tan[:, 3:4]], axis=1)
-
-    tv = obj_scene["tri_vertex"]
-    order = refit["order"]
-    tvo = tv[order]                                   # SAH-ordered corners
-    v0 = vtx_pos[tvo[:, 0]]
-    v1 = vtx_pos[tvo[:, 1]]
-    v2 = vtx_pos[tvo[:, 2]]
-    tri_min = jnp.minimum(jnp.minimum(v0, v1), v2)
-    tri_max = jnp.maximum(jnp.maximum(v0, v1), v2)
-    nodes8 = refit_bvh8(refit["nodes8"], refit["levels"], tri_min, tri_max,
-                        leaf_max=LEAF8_MAX)
-    # tree-quality decay vs the rest pose (drives the rebuild trigger)
-    sah_ratio = (refit_quality(nodes8, tri_min, tri_max)
-                 / refit["rest_quality"])
-
-    geom = dict(v0=v0, e1=v1 - v0, e2=v2 - v0, tri_id=order)
-    scene = dict(
-        bvh=dict(nodes8=nodes8), geom=geom,
-        tri_vertex=tv, tri_prim=obj_scene["tri_prim"],
-        vtx_pos=vtx_pos, vtx_uv=obj_scene["vtx_uv"],
-        vtx_normal=vtx_normal, vtx_tangent=vtx_tangent,
-        tex_size=obj_scene["tex_size"],
-    )
-    if "tex_stack" in obj_scene:  # fallback texel path (lean pytrees omit)
-        out["tex_stack"] = obj_scene["tex_stack"]
-    if "tex_img_of_prim" in obj_scene:
-        scene["tri_attr"] = _tri_attr(
-            tv, obj_scene["tri_prim"], vtx_pos, obj_scene["vtx_uv"],
-            vtx_normal, vtx_tangent, obj_scene["tex_size"],
-            obj_scene["tex_img_of_prim"])
-        if "tex_quad48" in obj_scene:
-            scene["tex_quad48"] = obj_scene["tex_quad48"]
-    _forward_mip_tables(scene, obj_scene)
-
-    from ..kernels.traverse_pallas import trace_closest_packets
-
-    origin, direction = camera_rays(camera, width, height)
-    hits = trace_closest_packets(scene["bvh"], scene["geom"], origin,
-                                 direction, T_MIN, T_MAX, height=height,
-                                 width=width, tables="bvh8")
-    g = shade(scene, camera, lights, hits, origin, direction,
-              pallas_tables="bvh8", height=height, width=width,
-              aniso_taps=aniso_taps)
-
-    color = quantize_r11g11b10f(g["color"]).reshape(height, width, 3)
-    depth = quantize_r16f(g["depth"]).reshape(height, width)
-    normal = quantize_r11g11b10f(g["normal_enc"]).reshape(height, width, 3)
-
-    if enable_gtao:
-        ao = compute_ao(depth, normal, gtao_consts, gtao_settings, noise_index)
-    else:
-        ao = jnp.full((height, width), 255, jnp.uint16)
-
-    if enable_tonemap:
-        image = pack_unorm8(tonemap_frame(color, ao, lpm_derived))
-    else:
-        image = pack_unorm8(jnp.clip(color, 0.0, 1.0))
-    return dict(image=image, color=color, depth=depth, normal=normal, ao=ao,
-                refit_sah_ratio=sah_ratio)

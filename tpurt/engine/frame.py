@@ -15,7 +15,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..kernels.traverse import trace_closest
+from ..kernels.trace import trace_closest
 from ..passes.encodings import pack_unorm8, quantize_r11g11b10f, quantize_r16f
 from ..passes.gtao import GtaoSettings, compute_ao
 from ..passes.rays import T_MAX, T_MIN, camera_rays
@@ -46,8 +46,7 @@ SPP_UNROLL = 4
 
 def render_gbuffer(scene: dict, camera: dict, lights: dict, *, width: int,
                    height: int, row_start=0, num_rows: int | None = None,
-                   pallas_tables: str = "", spp: int = 1,
-                   aniso_taps: int = 1):
+                   spp: int = 1, aniso_taps: int = 1):
     """Trace + shade the (optionally banded) pixel grid; returns the
     unquantized G-buffer dict (color spp-averaged, depth/normals from the
     center sample). Shared by the single-chip frame, the multi-chip
@@ -55,20 +54,11 @@ def render_gbuffer(scene: dict, camera: dict, lights: dict, *, width: int,
     band = height if num_rows is None else num_rows
 
     def trace_and_shade(origin, direction):
-        if pallas_tables:
-            from ..kernels.traverse_pallas import trace_closest_packets
-
-            hits = trace_closest_packets(
-                scene["bvh"], scene["geom"], origin, direction, T_MIN, T_MAX,
-                height=band, width=width, max_leaf=MAX_LEAF,
-                tables=pallas_tables)
-        else:
-            hits = trace_closest(scene["bvh"], scene["geom"], origin,
-                                 direction, T_MIN, T_MAX, max_leaf=MAX_LEAF)
+        hits = trace_closest(scene["bvh"], scene["geom"], origin, direction,
+                             T_MIN, T_MAX, max_leaf=MAX_LEAF)
         return shade(scene, camera, lights, hits, origin, direction,
-                     pallas_tables=pallas_tables, height=band, width=width,
-                     max_leaf=MAX_LEAF, aniso_taps=aniso_taps,
-                     image_rows=height)
+                     height=band, width=width, max_leaf=MAX_LEAF,
+                     aniso_taps=aniso_taps, image_rows=height)
 
     origin, direction = camera_rays(camera, width, height,
                                     row_start=row_start, num_rows=num_rows)
@@ -95,24 +85,20 @@ def render_gbuffer(scene: dict, camera: dict, lights: dict, *, width: int,
 
 
 @partial(jax.jit, static_argnames=("width", "height", "gtao_settings",
-                                   "enable_gtao", "enable_tonemap",
-                                   "pallas_tables", "spp", "aniso_taps"))
+                                   "enable_gtao", "enable_tonemap", "spp",
+                                   "aniso_taps"))
 def render_frame(scene: dict, camera: dict, lights: dict, gtao_consts: dict,
                  lpm_derived: dict, noise_index, *, width: int, height: int,
                  gtao_settings: GtaoSettings = GtaoSettings(),
                  enable_gtao: bool = True, enable_tonemap: bool = True,
-                 pallas_tables: str = "", spp: int = 1,
-                 aniso_taps: int = 1):
+                 spp: int = 1, aniso_taps: int = 1):
     """Render one frame. Returns dict with:
     image (H,W,3) u8 sRGB, color/depth/normal G-buffer, ao (H,W) u8.
-    pallas_tables ("smem"/"vmem"/"hbm") routes primary + shadow rays through
-    the packet tracer with that table tier; "" uses the XLA tracer.
     spp > 1 averages R2-jittered HDR samples (anti-aliasing); the G-buffer
     for GTAO comes from the center sample.
     """
     g = render_gbuffer(scene, camera, lights, width=width, height=height,
-                       pallas_tables=pallas_tables, spp=spp,
-                       aniso_taps=aniso_taps)
+                       spp=spp, aniso_taps=aniso_taps)
 
     # G-buffer storage-format quantization (B10G11R11F color+normal, R16F depth)
     color = quantize_r11g11b10f(g["color"]).reshape(height, width, 3)
@@ -142,24 +128,15 @@ def render_frame(scene: dict, camera: dict, lights: dict, gtao_consts: dict,
     return out
 
 
-@partial(jax.jit, static_argnames=("width", "height", "pallas_tables"))
+@partial(jax.jit, static_argnames=("width", "height"))
 def render_sample_hdr(scene: dict, camera: dict, lights: dict, jitter,
-                      *, width: int, height: int, pallas_tables: str = ""):
+                      *, width: int, height: int):
     """One progressive-accumulation sample: linear HDR radiance with a
     sub-pixel camera jitter (jitter in [-0.5, 0.5]^2 pixels). Used by the
     accumulation / ground-truth mode (engine.accumulate)."""
     origin, direction = camera_rays(camera, width, height, jitter=jitter)
-    if pallas_tables:
-        from ..kernels.traverse_pallas import trace_closest_packets
-
-        hits = trace_closest_packets(scene["bvh"], scene["geom"], origin,
-                                     direction, T_MIN, T_MAX, height=height,
-                                     width=width, max_leaf=MAX_LEAF,
-                                     tables=pallas_tables)
-    else:
-        hits = trace_closest(scene["bvh"], scene["geom"], origin, direction,
-                             T_MIN, T_MAX, max_leaf=MAX_LEAF)
-    g = shade(scene, camera, lights, hits, origin, direction,
-              pallas_tables=pallas_tables, height=height, width=width,
-              max_leaf=MAX_LEAF)
+    hits = trace_closest(scene["bvh"], scene["geom"], origin, direction,
+                         T_MIN, T_MAX, max_leaf=MAX_LEAF)
+    g = shade(scene, camera, lights, hits, origin, direction, height=height,
+              width=width, max_leaf=MAX_LEAF)
     return g["color"].reshape(height, width, 3)

@@ -1,6 +1,6 @@
 """Frame timer — the reference's only performance instrumentation
 (frame_timer.rs:16-28): once per second prints mean ms/frame and FPS.
-See engine.profiler for the richer per-pass TPU instrumentation.
+See engine.profiler for the richer per-pass instrumentation.
 """
 from __future__ import annotations
 

@@ -2,25 +2,23 @@
 
 The reference suballocates model/texture buffers from large backing
 allocations (vk_buffers_suballocator.rs:84-146) so streaming doesn't
-reallocate device memory. The TPU analogue: mip-atlas ROWS of all
+reallocate device memory. The analogue here: mip-atlas ROWS of all
 resident unique images live inside ONE persistent device array whose
 slots are managed by utils.pool.BuddySubAllocator (row units). On model
 residency changes (scene/model.py LOD state machine) the renderer
 re-flattens host-side, but texture rows already resident keep their
 offsets — only JOINING images upload (donated dynamic_update_slice,
-in-place in HBM) and LEAVING images merely free their slots. Two wins
-over the round-3 flow, which re-uploaded every table on any change:
+in place on the device) and LEAVING images merely free their slots. Two wins
+over re-uploading every table on any change:
 
-  * upload volume per residency event drops to the delta (the 805 MB
-    texture-wall atlas re-uploaded in full before),
+  * upload volume per residency event drops to the delta,
   * the atlas argument SHAPE is the arena capacity, stable across scene
     changes -> the jitted frame does not respecialize when a model
     streams in (same program, new offsets).
 
 Capacity rounds the first working set up to a power of two and grows by
-doubling (full re-upload on growth only). Gather cost follows TABLE size
-(GATHER_PROBE.json), so the rounding at most doubles the table the
-gathers see.
+doubling (full re-upload on growth only); the rounding at most doubles
+the table the gathers see.
 """
 from __future__ import annotations
 

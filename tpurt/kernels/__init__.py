@@ -1,2 +1,2 @@
 from .intersect import moller_trumbore, ray_aabb  # noqa: F401
-from .traverse import trace_closest, trace_any  # noqa: F401
+from .trace import trace_closest, trace_any  # noqa: F401

@@ -1,7 +1,7 @@
 """Ray/primitive intersection math (vectorized jnp).
 
 The reference gets these from the RT hardware behind `traceRayEXT`
-(raytrace.rgen.glsl:90-101); on TPU they are explicit VPU programs:
+(raytrace.rgen.glsl:90-101); here they are explicit array programs:
 slab-test ray/AABB and Möller–Trumbore ray/triangle, both double-faced and
 opaque (the reference traces with gl_RayFlagsOpaqueEXT and no face culling).
 """

@@ -1,10 +1,11 @@
-"""Stackless BVH traversal — the TPU replacement for `traceRayEXT`.
+"""Stackless BVH traversal in plain XLA — the replacement for `traceRayEXT`.
 
 Wavefront style: a whole batch of rays advances in lockstep through the
 skip-link BVH (see bvh.flat), one i32 node pointer per lane, inside a single
-`lax.while_loop`. Every iteration is pure gathers + VPU math, so XLA maps it
-onto the vector unit with no per-lane control flow; lanes that exit early
-simply stop contributing (their pointer parks at -1).
+`lax.while_loop`. Every iteration is pure gathers + elementwise math with no
+per-lane control flow; lanes that exit early simply stop contributing (their
+pointer parks at -1). This is the tracer off the GPU and the plain reference
+for the GPU kernel (traverse_gpu.py); callers go through kernels/trace.py.
 
 Two entry points mirror the reference's two trace calls:
   trace_closest — primary rays (raytrace.rgen.glsl:90-101),

@@ -279,7 +279,7 @@ int32_t tpurt_build_sah(const float* amin, const float* amax, int32_t n,
 //
 // Power-of-two buddy sub-allocator over a linear arena — the host-side
 // counterpart of the reference's VkBuffersSubAllocator (free-lists keyed by
-// block size, recursive split on allocate and buddy-merge on free). On TPU
+// block size, recursive split on allocate and buddy-merge on free). Here
 // the arena indexes into preallocated pooled device arrays (XLA owns real
 // memory); this manages slot lifetimes for streaming/staging pools.
 

@@ -3,7 +3,7 @@ ships (reference: src/vk_renderer/shaders/brdfs.glsl:6-101).
 
 All functions are elementwise over arbitrary leading batch axes; color inputs
 carry a trailing axis of 3. Everything here fuses into the shading pass under
-jit — there is no per-pixel dispatch, the whole image is one VPU program.
+jit — there is no per-pixel dispatch, the whole image is one fused program.
 """
 from __future__ import annotations
 

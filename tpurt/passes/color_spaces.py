@@ -15,6 +15,7 @@ Reference: src/vk_renderer/shaders/color_spaces.glsl:36-321.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 HCV_EPSILON = 1e-10
@@ -84,12 +85,14 @@ def srgb_to_rgb(srgb):
 
 def rgb_to_xyz(rgb):
     """:113-115."""
-    return jnp.einsum("ij,...j->...i", RGB_2_XYZ, rgb)
+    return jnp.einsum("ij,...j->...i", RGB_2_XYZ, rgb,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def xyz_to_rgb(xyz):
     """:118-120."""
-    return jnp.einsum("ij,...j->...i", XYZ_2_RGB, xyz)
+    return jnp.einsum("ij,...j->...i", XYZ_2_RGB, xyz,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def xyz_to_xyY(xyz):

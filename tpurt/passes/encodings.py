@@ -3,7 +3,7 @@
 The reference renders into quantized storage images: color and encoded
 normals in B10G11R11_UFLOAT (renderer.rs:268, vk_rt_lightning_shadows.rs:125-159),
 view-space depth in R16F, AO terms in R32_UINT (vk_xe_gtao.rs:295-333). To
-keep per-pixel output comparable (<=1% RMSE gate) the TPU pipeline applies the
+keep per-pixel output comparable (<=1% RMSE gate) this pipeline applies the
 same quantization at the same points; these helpers implement the format
 round-trips with jnp bit ops.
 """

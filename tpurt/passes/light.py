@@ -24,6 +24,7 @@ from ..scene.lights import (
     LIGHT_TYPE_POINT,
     LIGHT_TYPE_SPOT,
 )
+from .vec import length
 
 
 def _dot(a, b):
@@ -116,7 +117,7 @@ def get_light_radiance(light: dict, pos, L):
                          radiance * (t * t)[..., None], radiance)
 
     has_falloff = light["falloff_distance"] > 0.0
-    dist = jnp.linalg.norm(jnp.broadcast_to(light["pos"], pos.shape) - pos, axis=-1)
+    dist = length(jnp.broadcast_to(light["pos"], pos.shape) - pos)
     w = jnp.maximum(1.0 - (dist / light["falloff_distance"]) ** 2, 0.0) ** 2
     radiance = jnp.where(has_falloff[..., None] if jnp.ndim(has_falloff) else has_falloff,
                          radiance * w[..., None], radiance)

@@ -7,7 +7,12 @@ inverse view. Vulkan's top-left origin / NDC-y-down pairs with the camera's
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+from .vec import length
+
+_HIGHEST = jax.lax.Precision.HIGHEST  # a GPU would run f32 in TF32
 
 T_MIN = 0.001
 T_MAX = 10000.0
@@ -35,9 +40,11 @@ def camera_rays(camera: dict, width: int, height: int,
     height = num_rows  # shapes below are per-band
 
     ndc = jnp.stack([dx, dy, jnp.ones_like(dx), jnp.ones_like(dx)], axis=-1)
-    target = jnp.einsum("ij,hwj->hwi", proj_inv, ndc)[..., :3]
-    target = target / jnp.linalg.norm(target, axis=-1, keepdims=True)
-    direction = jnp.einsum("ij,hwj->hwi", view_inv[:3, :3], target)
+    target = jnp.einsum("ij,hwj->hwi", proj_inv, ndc,
+                        precision=_HIGHEST)[..., :3]
+    target = target / length(target)[..., None]
+    direction = jnp.einsum("ij,hwj->hwi", view_inv[:3, :3], target,
+                           precision=_HIGHEST)
 
     origin = jnp.broadcast_to(view_inv[:3, 3], (height, width, 3))
     return origin.reshape(-1, 3), direction.reshape(-1, 3)

@@ -2,7 +2,7 @@
 
 The reference ships a development-only ray-traced AO reference used to tune
 XeGTAO (XeGTAO.h:85-99 ReferenceRTAOConstants: TotalRaysLength ≙ radius,
-MaxBounces default 1, frame accumulation). This is its TPU form: per frame,
+MaxBounces default 1, frame accumulation). This is its form here: per frame,
 each hit point shoots cosine-weighted hemisphere occlusion rays bounded by
 `total_rays_length`; visibilities accumulate across frames into a converged
 reference AO image, which can be compared against passes/gtao.py output.
@@ -14,8 +14,9 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..kernels.traverse import trace_any, trace_closest
+from ..kernels.trace import trace_any, trace_closest
 from .rays import T_MAX, T_MIN, camera_rays
+from .vec import normalize
 
 RTAO_T_MIN = 1e-3
 
@@ -74,8 +75,7 @@ def rtao_frame(scene: dict, camera: dict, key, *, width: int, height: int,
         n2 = scene["vtx_normal"][vids[:, 2]]
     world_pos = p0 * w + p1 * u + p2 * v
     normal = n0 * w + n1 * u + n2 * v
-    normal = normal / jnp.maximum(
-        jnp.linalg.norm(normal, axis=-1, keepdims=True), 1e-20)
+    normal = normalize(normal)
     # face the ray origin (double-sided geometry)
     flip = jnp.sum(normal * direction, axis=-1) > 0.0
     normal = jnp.where(flip[:, None], -normal, normal)

@@ -24,18 +24,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..kernels.traverse import trace_any
+from ..kernels.trace import trace_any
 from . import brdf
 from .light import get_light_radiance, get_unnormalized_L_vec
+from .vec import length, normalize
 
 LOCAL_SSS_RATIO = 0.4
 SHADOW_T_MIN = 0.01
 SHADOW_ATTENUATION = 0.05
 MISS_DEPTH = 10000.0
-
-
-def _normalize(v, eps=1e-20):
-    return v / jnp.maximum(jnp.linalg.norm(v, axis=-1, keepdims=True), eps)
 
 
 def sample_bilinear(tex_stack, tex_size, prim, layer: int, uv,
@@ -79,10 +76,7 @@ def sample_bilinear(tex_stack, tex_size, prim, layer: int, uv,
 
 
 def _quad_rows_to_bytes(row):
-    """Gathered quad rows -> (N, 64) byte values as f32. u8 is the right
-    storage dtype: GATHER_PROBE.json measured f32/i32 bit-views of the
-    same 64 B rows gathering ~2x SLOWER from big tables (14.8/14.9 ms vs
-    8.1 per 640k rows); the fast lever is table SIZE (dedup_images)."""
+    """Gathered u8 quad rows -> (N, 64) byte values as f32."""
     return row.astype(jnp.float32)
 
 
@@ -94,9 +88,8 @@ def sample_bilinear_quad(quad, hw, img, uv, *, gather=None, shape=None,
     rows padded to 64 for the fast power-of-two gather path), so the fetch
     is a single flat row gather + the standard lerp. The leading axis is
     UNIQUE images (scene.dedup_images) — `img` is the per-hit unique-image
-    slot (tri_attr column 39), which keeps the table at content size: TPU
-    row-gather cost grows with table size (~4.9 ns/row at 2.7 MB vs ~12.2
-    at 268 MB, GATHER_PROBE.json). hw: (N, 2) f32 valid (h, w) extents.
+    slot (tri_attr column 39), which keeps the table at content size.
+    hw: (N, 2) f32 valid (h, w) extents.
     Bit-identical to 4x sample_bilinear on the 12-stack.
 
     gather/shape: sharded-table injection (dist/geometry.py) — `gather`
@@ -170,7 +163,7 @@ def _sample_mip_bilinear(atlas, offsets, sizes, prim, layer: int, uv, level):
 
 def sample_trilinear(atlas, offsets, sizes, prim, layer: int, uv, lod):
     """Trilinear fetch: bilinear at floor/ceil mip levels, lerped by the
-    fractional lod. The TPU analogue of the reference's immutable
+    fractional lod. The counterpart of the reference's immutable
     LINEAR/LINEAR/LINEAR sampler (vk_rt_descriptor_set.rs:76-97)."""
     levels = sizes.shape[1]
     lod = jnp.clip(lod, 0.0, float(levels - 1))
@@ -400,7 +393,7 @@ def sample_trilinear_block4(b4, boffsets, sizes, prim, uv, lod, *,
                             gather=None):
     """Trilinear fetch through the compact block4 tier: 8 row gathers
     (4 corners x 2 mip levels) instead of the quad tier's 2 — the
-    automatic fallback when the quad atlas would blow the HBM budget
+    automatic fallback when the quad atlas would blow the memory budget
     (5.33x vs 1.33x source bytes; scene.MIP_QUAD_BUDGET_BYTES). With an
     injected `gather` (sharded tables), all 8 index vectors ride ONE
     call (one ring tour)."""
@@ -449,7 +442,7 @@ def ray_cone_lod(t, direction, N, p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h,
     footprint = cone_diam / jnp.maximum(cos_in, 0.25)  # bounded anisotropy
     e1 = p1 - p0
     e2 = p2 - p0
-    world_area = 0.5 * jnp.linalg.norm(jnp.cross(e1, e2), axis=-1)
+    world_area = 0.5 * length(jnp.cross(e1, e2))
     duv1 = uv1 - uv0
     duv2 = uv2 - uv0
     uv_area = 0.5 * jnp.abs(duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0])
@@ -474,7 +467,7 @@ def ray_cone_aniso(t, direction, N, p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h,
     # minor-axis footprint in texels -> base LOD (no 1/cos elongation)
     e1 = p1 - p0
     e2 = p2 - p0
-    world_area = 0.5 * jnp.linalg.norm(jnp.cross(e1, e2), axis=-1)
+    world_area = 0.5 * length(jnp.cross(e1, e2))
     duv1 = uv1 - uv0
     duv2 = uv2 - uv0
     uv_area = 0.5 * jnp.abs(duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0])
@@ -484,8 +477,7 @@ def ray_cone_aniso(t, direction, N, p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h,
 
     # major-axis direction: D projected into the surface plane
     proj = direction - d_dot_n[:, None] * N
-    plen = jnp.linalg.norm(proj, axis=-1)
-    pdir = proj / jnp.maximum(plen, 1e-20)[:, None]
+    pdir = normalize(proj)
     aniso = jnp.clip(1.0 / jnp.maximum(cos_in, 1e-4), 1.0, float(max_aniso))
     major_len = cone_diam * aniso
 
@@ -524,31 +516,18 @@ def sample_anisotropic(atlas, offsets, sizes, prim, layer: int, uv,
 
 
 def shade(scene: dict, camera: dict, lights: dict, hits: dict,
-          origin, direction, *, pallas_tables: str = "",
-          height: int = 0, width: int = 0, max_leaf: int = 4,
-          shadow_trace_fn=None, aniso_taps: int = 1, image_rows: int = 0,
-          attr_rows=None, quad_gather=None, quad_shape=None,
-          shadow_trace_multi_fn=None, fuse_shadows: bool = False,
-          light_eval: str = "loop"):
+          origin, direction, *, height: int = 0, width: int = 0,
+          max_leaf: int = 4, shadow_trace_fn=None, aniso_taps: int = 1,
+          image_rows: int = 0, attr_rows=None, quad_gather=None,
+          quad_shape=None, light_eval: str = "loop"):
     """Shade one batch of primary hits.
 
     Returns dict(color (N,3), depth (N,), normal_enc (N,3)) — the unquantized
     G-buffer; the engine applies format quantization (B10G11R11F / R16F).
-    With pallas_tables set, shadow rays go through the packet tracer (shadow
-    rays inherit the pixel tiling, so the swizzle stays coherent).
+    Shadow rays go through the tracer entry (kernels/trace.py).
     shadow_trace_fn overrides the occlusion tracer entirely —
     (origin, dir, tmin, tmax) -> bool mask; the sharded-geometry mode
     passes its ring all-to-all tracer here (dist/geometry.py).
-    shadow_trace_multi_fn supersedes it when set: ONE call
-    (origin, dirs: S x (N,3), tmin, tmaxs: S x (N,)) -> (S,N) bool covers
-    every light, so a ring tracer tours the ICI once for all lights (the
-    distributed analogue of the fused trace_any_bvh8_multi launch).
-    fuse_shadows=True routes the single-chip multi-light case through the
-    fused kernel too — measured SLOWER there (6.59 vs 5.82 ms for 3 lights
-    at 800², SHADOW_FUSION_PROBE.json: the any-hit step is VPU-bound, so
-    fusing triples its dominant slab/MT work while the union footprint
-    only saves ~45% of the steps), hence default off; the win is real only
-    when a launch carries collective costs (the sharded-geometry ring).
     image_rows: the FULL image height, used for the ray-cone spread — pass
     it when `height` is only a band of the frame (multi-chip path), or the
     cone comes out mesh-size× too wide.
@@ -559,8 +538,6 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     table, with quad_shape = the full table's (U, H, W, C) when the local
     scene dict carries only a placeholder.
     """
-    if pallas_tables:
-        from ..kernels.traverse_pallas import trace_any_packets
     tri = hits["tri"]
     valid = tri >= 0
     tidx = jnp.maximum(tri, 0)
@@ -572,9 +549,8 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     tex_hw = None
     if attr_rows is not None or "tri_attr" in scene:
         # gather-optimized path: ONE wide gather fetches all three
-        # corners' attributes plus [prim, tex_h, tex_w] (TPU gather cost
-        # scales with rows, not row width) — the values are byte-identical
-        # to the per-table path
+        # corners' attributes plus [prim, tex_h, tex_w] — the values are
+        # byte-identical to the per-table path
         attr = (attr_rows if attr_rows is not None
                 else scene["tri_attr"][tidx])  # (N, 40)
         p0, p1, p2 = attr[:, 0:3], attr[:, 12:15], attr[:, 24:27]
@@ -605,10 +581,10 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
 
     world_pos = p0 * w + p1 * u + p2 * v
     tex_coord = uv0 * w + uv1 * u + uv2 * v
-    world_normal = _normalize(n0 * w + n1 * u + n2 * v)
-    world_tangent = _normalize(t0[:, :3] * w + t1[:, :3] * u + t2[:, :3] * v)
+    world_normal = normalize(n0 * w + n1 * u + n2 * v)
+    world_tangent = normalize(t0[:, :3] * w + t1[:, :3] * u + t2[:, :3] * v)
     # Gram-Schmidt re-orthogonalization; handedness from v0's tangent.w
-    world_tangent = _normalize(
+    world_tangent = normalize(
         world_tangent
         - jnp.sum(world_tangent * world_normal, -1, keepdims=True) * world_normal)
     world_binormal = jnp.cross(world_normal, world_tangent) * t0[:, 3:4]
@@ -694,20 +670,9 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
                                             layer, tex_coord, lod)
     elif "tex_quad48" in scene and tex_hw is not None:
         # quad rows: ONE gather fetches the whole 2x2 bilinear footprint of
-        # albedo+ORM+normal at once. When the tracer emitted the uv
-        # payload (hits texu/texv/img/texh/texw, traverse_bvh8
-        # uv_payload=True), the quad index math reads kernel outputs
-        # instead of the tri_attr rows — the quad gather then runs
-        # independent of (and overlapped with) the attr gather
-        # (GATHER_TRIGGER_PROBE.json).
-        if "texu" in hits:
-            q_hw = jnp.stack([hits["texh"], hits["texw"]], axis=-1)
-            q_img = hits["img"].astype(jnp.int32)
-            q_uv = jnp.stack([hits["texu"], hits["texv"]], axis=-1)
-        else:
-            q_hw, q_img, q_uv = tex_hw, img, tex_coord
-        packed = sample_bilinear_quad(scene["tex_quad48"], q_hw, q_img,
-                                      q_uv, gather=quad_gather,
+        # albedo+ORM+normal at once
+        packed = sample_bilinear_quad(scene["tex_quad48"], tex_hw, img,
+                                      tex_coord, gather=quad_gather,
                                       shape=quad_shape,
                                       base=scene.get("tex_quad48_base"))
 
@@ -726,8 +691,8 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
                                    prim, layer, tex_coord)
 
     nmap = fetch(2)
-    N_ts = _normalize(nmap[:, :3] * 2.0 - 1.0)
-    N = _normalize(N_ts[:, 0:1] * world_tangent
+    N_ts = normalize(nmap[:, :3] * 2.0 - 1.0)
+    N = normalize(N_ts[:, 0:1] * world_tangent
                    + N_ts[:, 1:2] * world_binormal
                    + N_ts[:, 2:3] * world_normal)
 
@@ -737,7 +702,7 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     metallic = orm[:, 2]
 
     camera_pos = camera["camera_pos"]
-    V = _normalize(camera_pos[None, :] - world_pos)
+    V = normalize(camera_pos[None, :] - world_pos)
     F0 = 0.04 * (1.0 - metallic[:, None]) + albedo * metallic[:, None]
     corrected_roughness = roughness * roughness
 
@@ -747,15 +712,13 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     num_lights = lights["pos"].shape[0]
 
     # Pre-pass: per-light L vectors + shadow wants (the inputs the shadow
-    # traversal needs). Keeping this separate lets ALL shadow rays go out
-    # in ONE fused BVH8 launch (below) instead of one per light — which
-    # also removes the pallas_call barriers that used to split the
-    # per-light BRDF math into unfusable islands.
+    # traversal needs), so the hoisted schedules can launch every light's
+    # shadow trace before the BRDF math.
     pre = []
     for i in range(num_lights):
         light = {k: arr[i] for k, arr in lights.items()}
         nn_L = get_unnormalized_L_vec(light, world_pos)
-        L_len = jnp.linalg.norm(nn_L, axis=-1)
+        L_len = length(nn_L)
         L = nn_L / jnp.maximum(L_len, 1e-20)[..., None]
         nc_NdotL = jnp.sum(N * L, axis=-1)
         wants_shadow = valid & (light["casts_shadows"] > 0) & (nc_NdotL > 0)
@@ -764,43 +727,17 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
         pre.append(dict(light=light, L=L, nc_NdotL=nc_NdotL,
                         wants_shadow=wants_shadow, t_max=t_max))
 
+    def occlusion(L, t_max):
+        if shadow_trace_fn is not None:
+            return shadow_trace_fn(world_pos, L, SHADOW_T_MIN, t_max)
+        return trace_any(scene["bvh"], scene["geom"], world_pos, L,
+                         SHADOW_T_MIN, t_max, max_leaf=max_leaf)
+
     occ_all = None
-    if shadow_trace_multi_fn is not None:
-        occ_all = shadow_trace_multi_fn(
-            world_pos, [p["L"] for p in pre], SHADOW_T_MIN,
-            [p["t_max"] for p in pre])
-    elif (fuse_shadows and shadow_trace_fn is None
-            and pallas_tables == "bvh8" and num_lights > 1):
-        from ..bvh.wide import LEAF8_MAX
-        from ..kernels.traverse_bvh8 import trace_any_bvh8_multi
-
-        occ_all = trace_any_bvh8_multi(
-            scene["bvh"], scene["geom"], world_pos,
-            [p["L"] for p in pre], SHADOW_T_MIN,
-            [p["t_max"] for p in pre],
-            height=height, width=width,
-            max_leaf=max(max_leaf, LEAF8_MAX))
-    elif light_eval in ("hoist", "batch") and num_lights > 1:
-        # Hoist the (measured-faster) SOLO any-hit launches ahead of the
-        # BRDF math: back-to-back pallas launches, then ONE fused
-        # elementwise island for all lights — in the default interleaved
-        # loop each pallas_call is a fusion barrier that splits the
-        # per-light math into islands.
-        def _occ_one(p):
-            if shadow_trace_fn is not None:
-                return shadow_trace_fn(world_pos, p["L"], SHADOW_T_MIN,
-                                       p["t_max"])
-            if pallas_tables:
-                return trace_any_packets(scene["bvh"], scene["geom"],
-                                         world_pos, p["L"], SHADOW_T_MIN,
-                                         p["t_max"], height=height,
-                                         width=width, max_leaf=max_leaf,
-                                         tables=pallas_tables)
-            return trace_any(scene["bvh"], scene["geom"], world_pos,
-                             p["L"], SHADOW_T_MIN, p["t_max"],
-                             max_leaf=max_leaf)
-
-        occ_all = [_occ_one(p) for p in pre]
+    if light_eval in ("hoist", "batch") and num_lights > 1:
+        # every light's shadow trace first, then ONE elementwise island for
+        # the BRDF math of all lights (the loop interleaves them)
+        occ_all = [occlusion(p["L"], p["t_max"]) for p in pre]
 
     if light_eval == "batch" and num_lights > 1 and occ_all is not None:
         # Batched evaluation: all K lights' radiance + BRDF as one stacked
@@ -813,7 +750,7 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
         ncl_all = jnp.stack([p["nc_NdotL"] for p in pre])       # (K, N)
         wants_all = jnp.stack([p["wants_shadow"] for p in pre])
         occ_stack = jnp.stack(list(occ_all))                    # (K, N)
-        H_all = _normalize(V[None] + L_all)
+        H_all = normalize(V[None] + L_all)
         NdotL_a = jnp.clip(ncl_all, 0.0, 1.0)
         NdotH_a = jnp.clip(jnp.sum(N[None] * H_all, axis=-1), 0.0, 1.0)
         LdotH_a = jnp.clip(jnp.sum(L_all * H_all, axis=-1), 0.0, 1.0)
@@ -844,7 +781,7 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
         nc_NdotL = p["nc_NdotL"]
         wants_shadow = p["wants_shadow"]
         t_max = p["t_max"]
-        H = _normalize(V + L)
+        H = normalize(V + L)
 
         NdotL = jnp.clip(nc_NdotL, 0.0, 1.0)
         NdotH = jnp.clip(jnp.sum(N * H, axis=-1), 0.0, 1.0)
@@ -860,19 +797,8 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
             LOCAL_SSS_RATIO)[..., None]
 
         shadow_attenuation = jnp.ones_like(NdotL)
-        if occ_all is not None:
-            occluded = occ_all[i]
-        elif shadow_trace_fn is not None:
-            occluded = shadow_trace_fn(world_pos, L, SHADOW_T_MIN, t_max)
-        elif pallas_tables:
-            occluded = trace_any_packets(scene["bvh"], scene["geom"],
-                                         world_pos, L, SHADOW_T_MIN, t_max,
-                                         height=height, width=width,
-                                         max_leaf=max_leaf,
-                                         tables=pallas_tables)
-        else:
-            occluded = trace_any(scene["bvh"], scene["geom"], world_pos, L,
-                                 SHADOW_T_MIN, t_max, max_leaf=max_leaf)
+        occluded = (occ_all[i] if occ_all is not None
+                    else occlusion(L, t_max))
         shadow_attenuation = jnp.where(wants_shadow & occluded,
                                        SHADOW_ATTENUATION, shadow_attenuation)
 
@@ -890,12 +816,15 @@ def _shade_outputs(rho, valid, camera, world_pos, N):
     out_color = jnp.where(valid[:, None], rho, 0.0)
 
     view = camera["view"]
-    view_z = world_pos @ view[2, :3] + view[2, 3]
+    # HIGHEST: a GPU would otherwise run these f32 products in TF32
+    view_z = jnp.matmul(world_pos, view[2, :3],
+                        precision=jax.lax.Precision.HIGHEST) + view[2, 3]
     out_depth = jnp.where(valid, -view_z, MISS_DEPTH)
 
-    normal_view = jnp.einsum("ij,nj->ni", view[:3, :3], N)
+    normal_view = jnp.einsum("ij,nj->ni", view[:3, :3], N,
+                             precision=jax.lax.Precision.HIGHEST)
     normal_view = normal_view * jnp.array([1.0, -1.0, -1.0])
-    normal_enc = _normalize(normal_view) * 0.5 + 0.5
+    normal_enc = normalize(normal_view) * 0.5 + 0.5
     out_normal = jnp.where(valid[:, None], normal_enc, 0.5)
 
     return dict(color=out_color, depth=out_depth, normal_enc=out_normal)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -233,7 +234,8 @@ def lpm_filter(color, derived, shoulder=False, config=LPM_CONFIG_709_709):
     if soft:
         if con:
             con_m = jnp.asarray(derived["con"])
-            ratio = jnp.einsum("ij,...j->...i", con_m, ratio)
+            ratio = jnp.einsum("ij,...j->...i", con_m, ratio,
+                               precision=jax.lax.Precision.HIGHEST)
             rm = 1.0 / jnp.maximum(jnp.max(ratio, axis=-1, keepdims=True), 1e-30)
             ratio = ratio * rm
         sg = jnp.asarray(derived["soft_gap"])
@@ -253,7 +255,8 @@ def lpm_filter(color, derived, shoulder=False, config=LPM_CONFIG_709_709):
 
     if con2:
         con2_m = jnp.asarray(derived["con2"])
-        out = jnp.einsum("ij,...j->...i", con2_m, out)
+        out = jnp.einsum("ij,...j->...i", con2_m, out,
+                         precision=jax.lax.Precision.HIGHEST)
         if clip:
             out = sat01(out)
     if scale_only:

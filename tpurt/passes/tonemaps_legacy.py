@@ -11,6 +11,7 @@ that exact behavior.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -76,9 +77,11 @@ def _rtt_and_odt_fit(v):
 def aces_fitted(rgb):
     """ACES fitted (tonemaps.glsl:52-74); (..., 3) linear color.
     Matches the reference's (transposed-matrix) GLSL arithmetic."""
-    v = jnp.einsum("...j,ji->...i", rgb, jnp.asarray(_ACES_IN))
+    v = jnp.einsum("...j,ji->...i", rgb, jnp.asarray(_ACES_IN),
+                   precision=jax.lax.Precision.HIGHEST)
     v = _rtt_and_odt_fit(v)
-    return jnp.einsum("...j,ji->...i", v, jnp.asarray(_ACES_OUT))
+    return jnp.einsum("...j,ji->...i", v, jnp.asarray(_ACES_OUT),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def aces_film(x):

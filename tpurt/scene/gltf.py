@@ -123,27 +123,29 @@ class _Primitive:
     textures: Dict[TextureType, int] = field(default_factory=dict)  # -> image index
 
 
-def _decode_image_bytes(data: bytes) -> ImageData:
-    from PIL import Image
+_FORMAT_OF_CHANNELS = {1: "R8_UNORM", 3: "R8G8B8_UNORM", 4: "R8G8B8A8_UNORM"}
 
-    img = Image.open(io.BytesIO(data))
-    if img.mode == "P":
-        img = img.convert("RGBA" if "transparency" in img.info else "RGB")
-    if img.mode == "L":
-        fmt = "R8_UNORM"
-    elif img.mode == "LA":
-        img = img.convert("RGBA")
-        fmt = "R8G8B8A8_UNORM"
-    elif img.mode == "RGB":
-        fmt = "R8G8B8_UNORM"
-    elif img.mode == "RGBA":
-        fmt = "R8G8B8A8_UNORM"
+
+def _decode_image_bytes(data: bytes) -> ImageData:
+    """PNG through the stdlib codec (utils/png.py); other encodings (JPEG)
+    through Pillow when it is installed."""
+    from ..utils.png import decode_png
+
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        arr = decode_png(data)
     else:
-        img = img.convert("RGBA")
-        fmt = "R8G8B8A8_UNORM"
-    arr = np.asarray(img, np.uint8)
-    h, w = arr.shape[0], arr.shape[1]
-    return ImageData(pixels=arr.reshape(-1).copy(), width=w, height=h, format=fmt)
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(
+                "glTF texture is not a PNG; decoding it needs the Pillow "
+                "package, which is not installed") from e
+        img = Image.open(io.BytesIO(data))
+        arr = np.asarray(img.convert("RGBA" if img.mode in ("RGBA", "LA", "P")
+                                     else "RGB"), np.uint8)
+    h, w, c = arr.shape
+    return ImageData(pixels=arr.reshape(-1).copy(), width=w, height=h,
+                     format=_FORMAT_OF_CHANNELS[c])
 
 
 class GltfModelReader:
@@ -496,7 +498,7 @@ class GltfModelReader:
     # -- structure-of-arrays accessors for the renderer ---------------------
 
     def primitive_arrays(self):
-        """Per-primitive numpy SoA: what the TPU renderer actually consumes."""
+        """Per-primitive numpy SoA: what the renderer actually consumes."""
         out = []
         for prim in self.primitives:
             def get(flag, dtype, ncomp):

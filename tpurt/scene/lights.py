@@ -2,7 +2,7 @@
 
 Reference: src/vk_renderer/lights.rs — typed light collections
 (point/spot/directional/area) serialized into an 80-byte-equivalent struct
-(lights.rs:69-82). On TPU the packed struct becomes a struct-of-arrays pytree
+(lights.rs:69-82). Here the packed struct becomes a struct-of-arrays pytree
 (one (L, ...) array per field) so the shading pass can vmap over lights.
 """
 from __future__ import annotations

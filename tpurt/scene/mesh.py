@@ -1,6 +1,6 @@
 """Mesh attribute metadata and bounding volumes.
 
-TPU-native re-design of the reference's model-reader abstraction
+Re-design of the reference's model-reader abstraction
 (reference: src/vk_renderer/model_reader/model_reader.rs:5-146). The byte-level
 copy-info structs are kept so that asset layouts (interleaved vertex streams,
 index blocks, stacked texture layers) stay verifiable against the reference's

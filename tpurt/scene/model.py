@@ -5,8 +5,8 @@ Reference: vk_model.rs — a type-state machine Storage/Host/Device
 sphere: <= 10 on device, <= 20 staged on host, else evicted to disk
 (update_model_status, vk_model.rs:334-345).
 
-On TPU "device residency" means: the model's triangles participate in the
-flattened scene tables uploaded to HBM (scene.py rebuilds them when the
+"Device residency" means: the model's triangles participate in the
+flattened scene tables uploaded to the device (scene.py rebuilds them when the
 resident set changes — the analogue of re-recording upload commands +
 rebuilding the BLAS). "Host" keeps decoded numpy arrays in RAM; "storage"
 drops them.

@@ -2,7 +2,8 @@
 
 The reference's showcase scene (Sponza.glb, ~260k triangles) is not shipped
 (.MISSING_LARGE_BLOBS); these generators produce comparable triangle counts
-so traversal and the SMEM-budget fallback can be exercised at scale.
+so traversal can be exercised at scale. `write_textured_box_glb` writes a
+textured cube asset (.glb) from a seed, in place of an external model file.
 """
 from __future__ import annotations
 
@@ -153,3 +154,111 @@ def ground_plane(size: float = 20.0, y: float = 0.0) -> Model:
     eye = np.array([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, 0]],
                    np.float32)
     return Model.from_arrays(prims, eye)
+
+
+# (normal, u axis, v axis) per cube face, with u x v = normal so that the
+# corners below wind counter-clockwise seen from outside (glTF front faces)
+_BOX_FACES = [((0, 0, 1), (1, 0, 0), (0, 1, 0)),
+              ((1, 0, 0), (0, 1, 0), (0, 0, 1)),
+              ((0, 1, 0), (0, 0, 1), (1, 0, 0)),
+              ((-1, 0, 0), (0, 0, 1), (0, 1, 0)),
+              ((0, -1, 0), (1, 0, 0), (0, 0, 1)),
+              ((0, 0, -1), (0, 1, 0), (1, 0, 0))]
+
+
+def textured_box_arrays(seed: int = 0, texture_size: int = 256):
+    """The unit cube ([-0.5, 0.5]^3, 24 vertices, 12 triangles) with a
+    base-colour texture: an 8x8 checker plus seeded per-texel noise.
+    Returns (positions, normals, uvs, tangents, indices u16, texture
+    (S, S, 3) u8)."""
+    pos, nrm, uv, tan, idx = [], [], [], [], []
+    for n, u, v in _BOX_FACES:
+        n, u, v = (np.asarray(a, np.float32) for a in (n, u, v))
+        base = len(pos)
+        for su, sv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+            pos.append(0.5 * (n + su * u + sv * v))
+            nrm.append(n)
+            uv.append([(su + 1) / 2, (1 - sv) / 2])   # glTF: v points down
+            # +u follows the texture's x; the texture's y runs along -v
+            tan.append([*u, -1.0])
+        idx += [base, base + 1, base + 2, base, base + 2, base + 3]
+    s = texture_size
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    checker = ((yy * 8 // s) + (xx * 8 // s)) % 2
+    tex = np.where(checker[..., None] == 0,
+                   np.array([220, 220, 220]), np.array([60, 110, 190]))
+    tex = tex + rng.integers(-24, 25, size=(s, s, 3))
+    return (np.asarray(pos, np.float32), np.asarray(nrm, np.float32),
+            np.asarray(uv, np.float32), np.asarray(tan, np.float32),
+            np.asarray(idx, np.uint16), np.clip(tex, 0, 255).astype(np.uint8))
+
+
+def write_textured_box_glb(path, seed: int = 0, tangents: bool = False):
+    """Write the textured cube (textured_box_arrays) as a binary glTF: one
+    mesh, one buffer holding POSITION, NORMAL, TEXCOORD_0 (and TANGENT when
+    `tangents`), u16 indices and the embedded PNG base-colour texture.
+    Returns `path`."""
+    import json
+    import struct
+
+    from ..utils.png import encode_png
+
+    pos, nrm, uv, tan, idx, tex = textured_box_arrays(seed)
+    blobs = [pos, nrm, uv] + ([tan] if tangents else []) + [idx]
+    png = encode_png(tex)
+    views, accessors, chunks, offset = [], [], [], 0
+    for i, a in enumerate(blobs):
+        data = a.tobytes()
+        views.append(dict(buffer=0, byteOffset=offset, byteLength=len(data),
+                          target=34963 if a.dtype == np.uint16 else 34962))
+        acc = dict(bufferView=i, componentType=5123 if a.dtype == np.uint16
+                   else 5126, count=len(a),
+                   type="SCALAR" if a.ndim == 1 else f"VEC{a.shape[1]}")
+        if i == 0:
+            acc.update(min=a.min(0).tolist(), max=a.max(0).tolist())
+        accessors.append(acc)
+        chunks.append(data + b"\0" * (-len(data) % 4))
+        offset += len(chunks[-1])
+    views.append(dict(buffer=0, byteOffset=offset, byteLength=len(png)))
+    chunks.append(png + b"\0" * (-len(png) % 4))
+    attributes = dict(POSITION=0, NORMAL=1, TEXCOORD_0=2)
+    if tangents:
+        attributes["TANGENT"] = 3
+    doc = dict(
+        asset=dict(version="2.0", generator="tpurt procedural"),
+        scene=0, scenes=[dict(nodes=[0])], nodes=[dict(mesh=0)],
+        meshes=[dict(primitives=[dict(attributes=attributes,
+                                      indices=len(blobs) - 1, material=0)])],
+        materials=[dict(pbrMetallicRoughness=dict(
+            baseColorTexture=dict(index=0), metallicFactor=0.0))],
+        textures=[dict(sampler=0, source=0)],
+        samplers=[dict(magFilter=9729, minFilter=9986, wrapS=10497,
+                       wrapT=10497)],
+        images=[dict(bufferView=len(views) - 1, mimeType="image/png")],
+        accessors=accessors, bufferViews=views,
+        buffers=[dict(byteLength=sum(len(c) for c in chunks))])
+    js = json.dumps(doc, separators=(",", ":")).encode()
+    js += b" " * (-len(js) % 4)
+    binary = b"".join(chunks)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2,
+                            12 + 8 + len(js) + 8 + len(binary)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(binary), 0x004E4942) + binary)
+    return path
+
+
+def textured_box_file(directory=None) -> str:
+    """Write the textured cube to `directory` (default: `.assets/` in the
+    checkout, listed in .gitignore) and return its path — the model the
+    entry points (bench.py, chip_smoke.py) load in place of an external
+    asset."""
+    import os
+
+    if directory is None:
+        from ..utils.cache import CHECKOUT
+
+        directory = os.path.join(CHECKOUT, ".assets")
+    os.makedirs(directory, exist_ok=True)
+    return write_textured_box_glb(os.path.join(directory, "textured_box.glb"))

@@ -1,4 +1,4 @@
-"""Validation layer — the TPU analogue of the reference's debug tooling.
+"""Validation layer — the analogue of the reference's debug tooling.
 
 The reference enables VK_LAYER_KHRONOS_validation with GPU-assisted +
 synchronization validation in debug builds (vk_base.rs:47-63) plus a

@@ -44,7 +44,7 @@ def diff_report(a, b) -> dict:
 
 
 def main(argv=None):
-    from PIL import Image
+    from .png import decode_png
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("image_a")
@@ -53,8 +53,14 @@ def main(argv=None):
                    help="RMSE pass/fail gate (default 1%%)")
     args = p.parse_args(argv)
 
-    a = np.asarray(Image.open(args.image_a).convert("RGB"))
-    b = np.asarray(Image.open(args.image_b).convert("RGB"))
+    def load_rgb(path):
+        with open(path, "rb") as f:
+            img = decode_png(f.read())
+        return np.repeat(img, 3, axis=-1) if img.shape[-1] == 1 \
+            else img[..., :3]
+
+    a = load_rgb(args.image_a)
+    b = load_rgb(args.image_b)
     rep = diff_report(a, b)
     status = "PASS" if rep["rmse"] <= args.threshold else "FAIL"
     print(f"RMSE {rep['rmse']:.5f}  PSNR {rep['psnr']:.2f} dB  "

@@ -1,9 +1,9 @@
 """Buddy sub-allocator over a linear arena.
 
-TPU-native counterpart of the reference's VkBuffersSubAllocator
+Counterpart of the reference's VkBuffersSubAllocator
 (vk_buffers_suballocator.rs: power-of-two buddy over large backing buffers
 with size-keyed free lists, recursive split on allocate and buddy-merge on
-free). On TPU the runtime (XLA) owns real device memory, so this manages
+free). Here the runtime (XLA) owns real device memory, so this manages
 *slot lifetimes inside preallocated pooled arrays* — staging pools,
 streaming-texture arenas — instead of raw buffers. The hot path is the C++
 implementation in tpurt.native; a pure-Python twin serves as fallback and
